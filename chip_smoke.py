@@ -1,0 +1,433 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (mine_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+From the root of a checkout, on a machine with a CUDA device and nvcc:
+  1. prints the card's name and power limit, turns TF32 off;
+  2. builds the CUDA kernels from mine_tpu_torch/csrc/;
+  3. holds each kernel against its plain PyTorch version at the main path's
+     shapes (rtol = atol = 1e-5): the warp at the dense compositor's
+     (32, 4, 384, 512) and at a 756x1008 source, the fused warp-composite
+     at (1, 32, 4, 384, 512) with planes behind the target camera;
+  4. drives the main path at the default configuration's full width
+     (ResNet-50, 384x512, S=32, bf16 network) with seeded random weights:
+     a RenderEngine (streaming compositor) predicts two images and renders
+     1, 5 and 90 poses, a VideoGenerator (dense compositor) renders the
+     zoom-in trajectory; the kernels' launch counts must rise by exactly the
+     frames rendered, dense and streaming must agree to 1e-4, and a small
+     configuration on the card must agree with the same run on the CPU;
+  5. times every kernel (CUDA events), its plain version and, for the warp,
+     torch's grid_sample, beside each kernel's memory bound; times predict
+     and render per frame, and the frames' copy to host memory on its own.
+Every result line is JSON and carries the card's name and power limit; the
+last line is {"ok": true, "device": {...}}. Any failure raises and the exit
+code is not 0. Without a CUDA device, or outside a checkout, it exits non-zero
+before printing any result.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+FP32_FLOPS = 67e12  # H100 SXM fp32 rate outside the tensor cores
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def card() -> dict:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    name, power = (p.strip() for p in out.split(","))
+    return {"gpu": name, "power_limit": power, "nvidia_smi": out}
+
+
+def emit(info: dict, **fields) -> None:
+    print(json.dumps({**fields, "gpu": info["gpu"], "power_limit": info["power_limit"]}),
+          flush=True)
+
+
+def time_cuda_ms(fn, reps: int = 20, inner: int = 5, warmup: int = 3) -> float:
+    """Median per-call device time over `reps` CUDA-event windows of `inner`
+    back-to-back calls each, after `warmup` calls. Before each window the
+    stream sleeps ~1 ms on the card, so the host has queued the window's
+    calls before it starts: a kernel shorter than its wrapper's host
+    overhead is timed on the device, not on the host."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    windows = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)  # clock cycles, ~1 ms at the H100's ~2 GHz
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        windows.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) / inner for s, e in windows)
+
+
+def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors: torch.Tensor) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def plane_coords(h: int, w: int, s: int, g: np.ndarray, dev, gen) -> tuple:
+    """Sample coords of s real MPI planes (disparity 1 .. 0.001) at pose g,
+    with a band of rows replaced by random far-out-of-bounds coordinates."""
+    from mine_tpu_torch.inference.video import fov_intrinsics
+    from mine_tpu_torch.ops.geometry import inverse_3x3
+    from mine_tpu_torch.ops.homography import homography_sample_coords
+
+    k = torch.from_numpy(fov_intrinsics(h, w))[None].to(dev).expand(s, 3, 3)
+    depth = 1.0 / torch.linspace(1.0, 0.001, s, device=dev)
+    gt = torch.from_numpy(g)[None].to(dev).expand(s, 4, 4)
+    xy, _ = homography_sample_coords(depth, gt, inverse_3x3(k), k, h, w)
+    band = slice(h // 3, h // 3 + 16)
+    size = torch.tensor([w, h], dtype=torch.float32, device=dev)
+    noise = torch.rand(xy[:, band].shape, generator=gen, device=dev)
+    xy[:, band] = noise * (size + 100.0) - 50.0
+    return xy[..., 0].contiguous(), xy[..., 1].contiguous()
+
+
+def pose(tx: float, ty: float, tz: float, yaw: float = 0.02) -> np.ndarray:
+    g = np.eye(4, dtype=np.float32)
+    c, s = math.cos(yaw), math.sin(yaw)
+    g[0, 0], g[0, 2], g[2, 0], g[2, 2] = c, s, -s, c
+    g[:3, 3] = (tx, ty, tz)
+    return g
+
+
+def profile_breakdown(fn, frames: int, top: int = 8) -> dict:
+    """One profiled call of fn (after a warm one): wall and device time per
+    frame, the device's busy share, and the kernels taking the most device
+    time. The profiler's own overhead inflates the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+
+    def device_us(evt) -> float:
+        return float(getattr(evt, "self_device_time_total", 0.0)
+                     or getattr(evt, "self_cuda_time_total", 0.0))
+
+    # device-side events only (kernels, copies): the aten ops that launched
+    # them carry the same device time again
+    on_device = sorted(
+        (e for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0),
+        key=device_us, reverse=True,
+    )
+    device_ms = sum(device_us(e) for e in on_device) / 1e3
+    return {
+        "wall_ms_per_frame": wall_ms / frames,
+        "device_ms_per_frame": device_ms / frames,
+        "device_busy_share": device_ms / wall_ms,
+        "top_kernels": [
+            {"name": e.key[:100], "ms_per_frame": device_us(e) / 1e3 / frames,
+             "calls_per_frame": e.count / frames}
+            for e in on_device[:top]
+        ],
+    }
+
+
+def check_close(name: str, got: torch.Tensor, want: torch.Tensor, **tol) -> float:
+    err = (got - want).abs().max().item()
+    if not torch.allclose(got, want, **tol):
+        raise AssertionError(f"{name}: max abs err {err} is outside tolerance {tol}")
+    return err
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this run needs a "
+              "CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from mine_tpu_torch.config import Config
+    from mine_tpu_torch.inference.trajectory import camera_trajectories
+    from mine_tpu_torch.inference.video import VideoGenerator, render_many
+    from mine_tpu_torch.models.mpi import init_weights
+    from mine_tpu_torch.ops.geometry import inverse_3x3
+    from mine_tpu_torch.ops.kernels import build
+    from mine_tpu_torch.ops.kernels import warp as kw
+    from mine_tpu_torch.ops.mpi_render import streaming_inputs
+    from mine_tpu_torch.serving.engine import RenderEngine
+    from mine_tpu_torch.training.step import build_model, render_novel_view
+
+    # 1. the card, and no TF32 anywhere
+    info = card()
+    print(info["nvidia_smi"], flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit(info, phase="setup", torch=torch.__version__, cuda=torch.version.cuda,
+         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    # 2. build from the checkout's sources
+    t0 = time.perf_counter()
+    logs = build.build_all(force=True, ptxas_info=True)
+    ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    emit(info, phase="build", seconds=time.perf_counter() - t0, sources=sorted(logs),
+         ptxas=ptxas)
+
+    # 3. each kernel against its plain version at the main path's shapes
+    h, w, s = 384, 512, 32
+    g_test = pose(0.08, -0.04, 0.15)
+    k1_src = torch.rand((s, 4, h, w), generator=gen, device=dev)
+    k1_cx, k1_cy = plane_coords(h, w, s, g_test, dev, gen)
+    k1_err = check_close("warp_bilinear (32,4,384,512)", kw.warp_bilinear(k1_src, k1_cx, k1_cy),
+                         kw.warp_bilinear_plain(k1_src, k1_cx, k1_cy), **TOL)
+    hb, wb = 756, 1008
+    k3_src = torch.rand((1, 4, hb, wb), generator=gen, device=dev)
+    k3_cx, k3_cy = plane_coords(hb, wb, 1, g_test, dev, gen)
+    k3_err = check_close("warp_bilinear (1,4,756,1008)", kw.warp_bilinear(k3_src, k3_cx, k3_cy),
+                         kw.warp_bilinear_plain(k3_src, k3_cx, k3_cy), **TOL)
+    # a pose 1.5 units forward puts the planes nearer than that behind the
+    # target camera (z < 0): their sigma must be masked
+    k_cam = torch.from_numpy(np.array(
+        [[w / 2, 0, w / 2], [0, w / 2, h / 2], [0, 0, 1]], np.float32))[None].to(dev)
+    disparity = torch.linspace(1.0, 0.001, s, device=dev)[None]
+    k5_in = streaming_inputs(
+        torch.rand((1, s, h, w, 3), generator=gen, device=dev),
+        torch.rand((1, s, h, w, 1), generator=gen, device=dev) * 4.0,
+        disparity, torch.from_numpy(pose(0.1, -0.05, -1.5))[None].to(dev),
+        inverse_3x3(k_cam), k_cam,
+    )
+    n_behind = int((k5_in[4] < 0).any(dim=(2, 3)).sum())
+    if n_behind == 0:
+        raise AssertionError("warp_composite check has no plane behind the camera")
+    k5_err = check_close("warp_composite (1,32,4,384,512)", kw.warp_composite(*k5_in),
+                         kw.warp_composite_plain(*k5_in), **TOL)
+    emit(info, phase="kernel_check", tolerance=TOL, warp_bilinear_dense_err=k1_err,
+         warp_bilinear_756x1008_err=k3_err, warp_composite_err=k5_err,
+         warp_composite_planes_behind_camera=n_behind)
+
+    # 4. the main path at full width, seeded random weights
+    cfg = Config()  # the default configuration: ResNet-50, 384x512, S=32, bf16
+    state = init_weights(build_model(cfg), torch.Generator().manual_seed(0)).state_dict()
+    rng = np.random.default_rng(0)
+    yy, xx = np.mgrid[0:h, 0:w] / np.array([h, w])[:, None, None]
+    images = [
+        np.clip(np.stack([xx, yy, 0.5 * (xx + yy)], -1) * 255
+                + rng.normal(0, 20, (h, w, 3)), 0, 255).astype(np.uint8),
+        rng.integers(0, 256, (h, w, 3), dtype=np.uint8),
+    ]
+    (zoom_name, zoom), (_, swing) = camera_trajectories(cfg.data.name)[0]
+
+    kw.reset_launches()
+    engine = RenderEngine(cfg, state)
+    entries = [engine.predict(im) for im in images]
+    for e in entries:
+        if e.mpi_rgb.shape != (1, s, h, w, 3) or not bool(torch.isfinite(e.mpi_rgb).all()) \
+                or not bool(torch.isfinite(e.mpi_sigma).all()):
+            raise AssertionError(f"predict gave a bad MPI {tuple(e.mpi_rgb.shape)}")
+    renders, padded_frames = [], 0
+    for entry, poses, padded in ((entries[0], swing[:1], 1), (entries[1], swing[:5], 8),
+                                 (entries[0], zoom, 96)):
+        before = kw.launches["warp_composite"]
+        rgb, disp = engine.render(entry, poses)
+        launched = kw.launches["warp_composite"] - before
+        if launched != padded:
+            raise AssertionError(f"{len(poses)} poses launched warp_composite {launched} "
+                                 f"times, expected the padded {padded}")
+        if rgb.shape != (len(poses), h, w, 3) or disp.shape != (len(poses), h, w, 1) \
+                or not np.isfinite(rgb).all() or not np.isfinite(disp).all():
+            raise AssertionError(f"render of {len(poses)} poses: bad output {rgb.shape}")
+        renders.append(len(poses))
+        padded_frames += padded
+    before = kw.launches["warp_bilinear"]
+    video = VideoGenerator(cfg.replace(**{"mpi.compositor": "dense"}), state, images[0])
+    v_rgb, v_disp = video.render_poses(zoom)
+    if kw.launches["warp_bilinear"] - before != len(zoom) or not np.isfinite(v_rgb).all() \
+            or not np.isfinite(v_disp).all() or v_rgb.shape != (len(zoom), h, w, 3):
+        raise AssertionError("VideoGenerator (dense) did not render through warp_bilinear")
+    torch.cuda.synchronize()
+    main_launches = dict(kw.launches)
+    if not all(main_launches.values()):
+        raise AssertionError(f"a kernel of the main path never launched: {main_launches}")
+    # launches per rendered frame, from the counts: streaming frames are the
+    # padded pose buckets the engine ran, dense frames the video's poses
+    launches_per_frame = {
+        "warp_composite": main_launches["warp_composite"] / padded_frames,
+        "warp_bilinear (dense)": main_launches["warp_bilinear"] / len(zoom),
+    }
+    emit(info, phase="main_path", config="default (resnet50, 384x512, S=32, bf16)",
+         renders=renders, video_trajectory=zoom_name, launches=main_launches,
+         launches_per_frame=launches_per_frame)
+
+    # dense (warp_bilinear) and streaming (warp_composite) on one MPI and pose
+    e = entries[0]
+    k_inv = inverse_3x3(e.k)
+    g1 = torch.from_numpy(zoom[20])[None].to(dev)
+    outs = {
+        name: render_novel_view(cfg.replace(**{"mpi.compositor": name}), e.mpi_rgb,
+                                e.mpi_sigma, e.disparity, g1, k_inv, e.k)
+        for name in ("dense", "streaming")
+    }
+    agree = {}
+    for key in ("tgt_imgs_syn", "tgt_disparity_syn", "tgt_mask_syn"):
+        agree[key] = check_close(f"dense vs streaming {key}", outs["streaming"][key],
+                                 outs["dense"][key], rtol=1e-4, atol=1e-4)
+
+    # the whole path on the card against the same path on the CPU, small
+    small = Config().replace(**{"data.img_h": 128, "data.img_w": 128, "mpi.num_bins_coarse": 4,
+                                "model.num_layers": 18, "model.dtype": "float32"})
+    small_state = init_weights(build_model(small), torch.Generator().manual_seed(1)).state_dict()
+    small_poses = swing[:3]
+    small_out = {}
+    for where in ("cuda", "cpu"):
+        eng = RenderEngine(small, small_state, device=where)
+        small_out[where] = eng.render(eng.predict(images[1]), small_poses)
+    cpu_gap = {
+        name: float(np.abs(small_out["cuda"][i] - small_out["cpu"][i]).max())
+        for i, name in enumerate(("rgb", "disparity"))
+    }
+    if not (np.allclose(small_out["cuda"][0], small_out["cpu"][0], atol=1e-3)
+            and np.allclose(small_out["cuda"][1], small_out["cpu"][1], rtol=1e-3, atol=1e-5)):
+        raise AssertionError(f"small config: card and CPU disagree {cpu_gap}")
+    emit(info, phase="agreement", dense_vs_streaming_max_abs=agree,
+         card_vs_cpu_small_max_abs=cpu_gap)
+
+    # 5. timings
+    def grid_of(cx, cy, hh, ww):
+        return torch.stack([(cx + 0.5) / (0.5 * ww) - 1.0, (cy + 0.5) / (0.5 * hh) - 1.0], -1)
+
+    def grid_sample(src, grid):
+        return torch.nn.functional.grid_sample(
+            src, grid, mode="bilinear", padding_mode="border", align_corners=False)
+
+    kernels = []
+    k1_grid = grid_of(k1_cx, k1_cy, h, w)
+    k3_grid = grid_of(k3_cx, k3_cy, hb, wb)
+    warp_rows = {}
+    for label, (src, cx, cy, grid) in {
+        "dense": (k1_src, k1_cx, k1_cy, k1_grid),
+        "756x1008": (k3_src, k3_cx, k3_cy, k3_grid),
+    }.items():
+        n, c = src.shape[:2]
+        n_pix = cx.numel()
+        b_ms, b_by = bound_ms(nbytes(src, cx, cy) + n_pix * c * 4, n_pix * (9 * c + 12))
+        lib_gap = (grid_sample(src, grid) - kw.warp_bilinear(src, cx, cy)).abs().max().item()
+        warp_rows[label] = dict(
+            shape=list(src.shape), out=list(cx.shape),
+            ms=time_cuda_ms(lambda: kw.warp_bilinear(src, cx, cy)),
+            plain_ms=time_cuda_ms(lambda: kw.warp_bilinear_plain(src, cx, cy), reps=5, inner=1),
+            library_ms=time_cuda_ms(lambda: grid_sample(src, grid)),
+            bound_ms=b_ms, bound_by=b_by, library_max_abs_diff=lib_gap,
+        )
+        emit(info, phase="timing", kernel="warp_bilinear", case=label, **warp_rows[label])
+    kernels.append(dict(
+        name="warp_bilinear", route="cuda", source="mine_tpu_torch/csrc/warp.cu",
+        replaces="mine_tpu/ops/pallas/warp.py:365", launches=main_launches["warp_bilinear"],
+        max_abs_err=k1_err, ms=warp_rows["dense"]["ms"], plain_ms=warp_rows["dense"]["plain_ms"],
+        bound_ms=warp_rows["dense"]["bound_ms"], bound_by=warp_rows["dense"]["bound_by"],
+        library_ms=warp_rows["dense"]["library_ms"],
+    ))
+
+    src5, cx5 = k5_in[0], k5_in[1]
+    n5, s5, c5 = src5.shape[:3]
+    out5 = n5 * (c5 + 3) * cx5[0, 0].numel() * 4
+    b_ms, b_by = bound_ms(nbytes(*k5_in) + out5, cx5.numel() * (9 * c5 + 30))
+    k5_row = dict(
+        shape=list(src5.shape), ms=time_cuda_ms(lambda: kw.warp_composite(*k5_in)),
+        plain_ms=time_cuda_ms(lambda: kw.warp_composite_plain(*k5_in), reps=5, inner=1),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+    )
+    emit(info, phase="timing", kernel="warp_composite", case="streaming", **k5_row)
+    kernels.append(dict(
+        name="warp_composite", route="cuda", source="mine_tpu_torch/csrc/warp_composite.cu",
+        replaces="mine_tpu/ops/pallas/warp.py:689", launches=main_launches["warp_composite"],
+        max_abs_err=k5_err, ms=k5_row["ms"], plain_ms=k5_row["plain_ms"],
+        bound_ms=k5_row["bound_ms"], bound_by=k5_row["bound_by"], library_ms=None,
+    ))
+
+    def host_ms(fn, reps: int) -> float:
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times)
+
+    predict_ms = host_ms(lambda: engine.predict(images[0]), reps=5)
+    render_ms = host_ms(lambda: engine.render(entries[0], zoom[:64]), reps=3) / 64
+    dense_ms = host_ms(lambda: video.render_poses(zoom[:16]), reps=3) / 16
+    emit(info, phase="timing", engine="streaming", predict_ms=predict_ms,
+         render_ms_per_frame=render_ms, dense_render_ms_per_frame=dense_ms,
+         launches_per_frame=launches_per_frame)
+
+    # the frames' copy to host: each compositor's own 8 stacked frames (the
+    # tensors RenderEngine.render and VideoGenerator.render_poses copy), their
+    # layout, and the copy timed alone, the two alternated, into fresh
+    # pageable memory (as both entry points copy) and into one pinned buffer
+    poses8 = torch.from_numpy(np.asarray(zoom[:8], np.float32)).to(dev)
+    stacked = {
+        name: render_many(cfg.replace(**{"mpi.compositor": name}), e.mpi_rgb,
+                          e.mpi_sigma, e.disparity, e.k, poses8)
+        for name in ("streaming", "dense")
+    }
+    pinned = {name: [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in frames]
+              for name, frames in stacked.items()}
+    copy_ms = {(name, kind): [] for name in stacked for kind in ("pageable", "pinned")}
+    for rep in range(10):
+        for name in ("streaming", "dense") if rep % 2 == 0 else ("dense", "streaming"):
+            for kind in ("pageable", "pinned"):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for src, buf in zip(stacked[name], pinned[name]):
+                    if kind == "pageable":
+                        src.cpu().numpy()
+                    else:
+                        buf.copy_(src)
+                torch.cuda.synchronize()
+                copy_ms[name, kind].append((time.perf_counter() - t) * 1e3 / 8)
+    emit(info, phase="host_copy", frames=8, bytes_per_frame=sum(
+        t[0].numel() * t.element_size() for t in stacked["streaming"]),
+        layout={name: [{"shape": list(t.shape), "stride": list(t.stride()),
+                        "contiguous": t.is_contiguous()} for t in frames]
+                for name, frames in stacked.items()},
+        ms_per_frame={f"{name}_{kind}": statistics.median(v)
+                      for (name, kind), v in copy_ms.items()})
+
+    for label, fn, frames in (("predict", lambda: engine.predict(images[0]), 1),
+                              ("render_streaming", lambda: engine.render(entries[0], zoom[:8]), 8),
+                              ("render_dense", lambda: video.render_poses(zoom[:8]), 8)):
+        emit(info, phase="profile", path=label, **profile_breakdown(fn, frames))
+
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

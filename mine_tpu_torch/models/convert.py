@@ -1,0 +1,115 @@
+"""Carry the JAX package's MPINetwork variables into the port's state dict.
+
+The input is the flat `.npz` layout that mine_tpu/models/pretrained.py reads
+and tools/convert_resnet.py / tools/convert_mine_checkpoint.py write:
+`params/backbone/Bottleneck_3/Conv_1/kernel`,
+`batch_stats/decoder/upconv_4_0/SyncBatchNorm_0/BatchNorm_0/mean`, ...
+This is the exact inverse of those two converters: HWIO kernels become OIHW,
+BatchNorm scale/bias/mean/var become weight/bias/running_mean/running_var.
+Strict both ways: a missing key raises KeyError, a leftover one ValueError.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from mine_tpu_torch.models.decoder import tuple_to_str
+from mine_tpu_torch.models.encoder import BOTTLENECK, STAGE_BLOCKS
+
+
+def flatten_variables(tree: Mapping[str, Any], prefix: str = "") -> dict[str, np.ndarray]:
+    """Nested flax variables {"params": {...}, "batch_stats": {...}} of numpy
+    arrays -> the flat "params/backbone/..." layout."""
+    flat: dict[str, np.ndarray] = {}
+    for key, value in tree.items():
+        path = f"{prefix}/{key}" if prefix else str(key)
+        if isinstance(value, Mapping):
+            flat.update(flatten_variables(value, path))
+        else:
+            flat[path] = np.asarray(value)
+    return flat
+
+
+def _mapping(num_layers: int) -> list[tuple[str, str, bool]]:
+    """(torch key, flat JAX key, is conv kernel) for every mapped tensor."""
+    rows: list[tuple[str, str, bool]] = []
+
+    def conv(torch_key: str, jax_module: str, bias: bool = False) -> None:
+        rows.append((f"{torch_key}.weight", f"params/{jax_module}/kernel", True))
+        if bias:
+            rows.append((f"{torch_key}.bias", f"params/{jax_module}/bias", False))
+
+    def bn(torch_key: str, jax_module: str) -> None:
+        base = f"{jax_module}/BatchNorm_0"
+        rows.extend([
+            (f"{torch_key}.weight", f"params/{base}/scale", False),
+            (f"{torch_key}.bias", f"params/{base}/bias", False),
+            (f"{torch_key}.running_mean", f"batch_stats/{base}/mean", False),
+            (f"{torch_key}.running_var", f"batch_stats/{base}/var", False),
+        ])
+
+    if num_layers not in STAGE_BLOCKS:
+        raise ValueError(f"unsupported resnet depth {num_layers}")
+    enc, jenc = "backbone.encoder", "backbone"
+    conv(f"{enc}.conv1", f"{jenc}/Conv_0")
+    bn(f"{enc}.bn1", f"{jenc}/SyncBatchNorm_0")
+    bottleneck = num_layers in BOTTLENECK
+    block = "Bottleneck" if bottleneck else "BasicBlock"
+    n_convs = 3 if bottleneck else 2
+    j = 0
+    for stage, n_blocks in enumerate(STAGE_BLOCKS[num_layers]):
+        for b in range(n_blocks):
+            pre, jpre = f"{enc}.layer{stage + 1}.{b}", f"{jenc}/{block}_{j}"
+            for c in range(n_convs):
+                conv(f"{pre}.conv{c + 1}", f"{jpre}/Conv_{c}")
+                bn(f"{pre}.bn{c + 1}", f"{jpre}/SyncBatchNorm_{c}")
+            if b == 0 and (stage > 0 or bottleneck):
+                conv(f"{pre}.downsample.0", f"{jpre}/Conv_{n_convs}")
+                bn(f"{pre}.downsample.1", f"{jpre}/SyncBatchNorm_{n_convs}")
+            j += 1
+
+    for k, name in enumerate(("conv_down1", "conv_down2", "conv_up1", "conv_up2")):
+        conv(f"decoder.{name}.0", f"decoder/ConvBNLeaky_{k}/Conv_0")
+        bn(f"decoder.{name}.1", f"decoder/ConvBNLeaky_{k}/SyncBatchNorm_0")
+    for i in range(5):
+        for jj in (0, 1):
+            pre = f"decoder.convs.{tuple_to_str(('upconv', i, jj))}"
+            conv(f"{pre}.conv.conv", f"decoder/upconv_{i}_{jj}/Conv3x3_0/Conv_0", bias=True)
+            bn(f"{pre}.bn", f"decoder/upconv_{i}_{jj}/SyncBatchNorm_0")
+    for s in range(4):
+        conv(f"decoder.convs.{tuple_to_str(('dispconv', s))}.conv",
+             f"decoder/dispconv_{s}/Conv_0", bias=True)
+    return rows
+
+
+def jax_variables_to_torch(flat: Mapping[str, np.ndarray],
+                           num_layers: int) -> dict[str, torch.Tensor]:
+    """Flat JAX variables of a 4-scale MPINetwork -> the port's state dict
+    (fp32, CPU tensors).
+    BatchNorm's num_batches_tracked has no JAX counterpart and is set to 0."""
+    rows = _mapping(num_layers)
+    missing = [jk for _, jk, _ in rows if jk not in flat]
+    if missing:
+        raise KeyError(
+            f"{len(missing)} variables missing for resnet{num_layers}: "
+            f"{missing[:4]}..."
+        )
+    leftover = sorted(set(flat) - {jk for _, jk, _ in rows})
+    if leftover:
+        raise ValueError(
+            f"{len(leftover)} variables have no place in the port's MPINetwork: "
+            f"{leftover[:4]}..."
+        )
+    state: dict[str, torch.Tensor] = {}
+    for torch_key, jax_key, is_kernel in rows:
+        arr = np.asarray(flat[jax_key], dtype=np.float32)
+        if is_kernel:
+            arr = np.transpose(arr, (3, 2, 0, 1))  # HWIO -> OIHW
+        state[torch_key] = torch.from_numpy(np.ascontiguousarray(arr))
+        if torch_key.endswith(".running_var"):
+            state[torch_key[: -len("running_var")] + "num_batches_tracked"] = \
+                torch.tensor(0, dtype=torch.long)
+    return state

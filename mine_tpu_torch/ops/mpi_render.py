@@ -1,0 +1,253 @@
+"""MPI compositing (counterpart of mine_tpu/ops/mpi_render.py, the parts that
+serving runs).
+
+Layout is channel-last (B, S, H, W, C) as in the JAX package; the plane axis
+S is axis 1 and every cumulative product runs over it.
+
+Two target compositors:
+  * dense: warp every plane into the target camera (warp kernel, through
+    grid_sample_pixel), then composite the warped stack;
+  * streaming: coordinate prep in torch, then the fused warp-composite
+    kernel, which never materialises a warped plane. Forward-only here; its
+    backward (a chunked-scan recompute) comes with the training port.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from mine_tpu_torch.ops.geometry import apply_3x3, homogeneous_pixel_grid, matmul3
+from mine_tpu_torch.ops.grid_sample import grid_sample_pixel
+from mine_tpu_torch.ops.homography import homography_sample_coords
+from mine_tpu_torch.ops.kernels.warp import warp_composite
+
+_BG_DIST = 1.0e3  # pseudo-distance behind the farthest plane
+
+
+def _shifted_exclusive(x: torch.Tensor, fill: float = 1.0) -> torch.Tensor:
+    """[a, b, c] -> [fill, a, b] along the plane axis (dim 1)."""
+    return torch.cat([torch.full_like(x[:, :1], fill), x[:, :-1]], dim=1)
+
+
+def alpha_composition(alpha: torch.Tensor, value: torch.Tensor):
+    """Over-compositing of K planes, nearest first. alpha (B, K, H, W, 1),
+    value (B, K, H, W, C) -> composed (B, H, W, C), weights (B, K, H, W, 1)."""
+    preserve = _shifted_exclusive(torch.cumprod(1.0 - alpha, dim=1))
+    weights = alpha * preserve
+    return torch.sum(value * weights, dim=1), weights
+
+
+def weighted_sum_mpi(rgb, xyz, weights, is_bg_depth_inf: bool = False):
+    """Expectation of rgb and depth under compositing weights.
+    rgb/xyz (B, S, H, W, 3); weights (B, S, H, W, 1)."""
+    weights_sum = torch.sum(weights, dim=1)
+    rgb_out = torch.sum(weights * rgb, dim=1)
+    z = xyz[..., 2:3]
+    if is_bg_depth_inf:
+        depth_out = torch.sum(weights * z, dim=1) + (1.0 - weights_sum) * 1000.0
+    else:
+        depth_out = torch.sum(weights * z, dim=1) / (weights_sum + 1.0e-5)
+    return rgb_out, depth_out
+
+
+def plane_volume_rendering(rgb, sigma, xyz, is_bg_depth_inf: bool = False):
+    """Volume rendering across depth planes: per-pixel inter-plane distances
+    turn sigma into transparency exp(-sigma * dist); transmittance is a
+    shifted cumprod over planes. Returns (rgb, depth, transmittance, weights)."""
+    dist = torch.linalg.vector_norm(xyz[:, 1:] - xyz[:, :-1], dim=-1, keepdim=True)
+    dist = torch.cat([dist, torch.full_like(dist[:, :1], _BG_DIST)], dim=1)
+    transparency = torch.exp(-sigma * dist)
+    alpha = 1.0 - transparency
+    transparency_acc = _shifted_exclusive(torch.cumprod(transparency + 1.0e-6, dim=1))
+    weights = transparency_acc * alpha
+    rgb_out, depth_out = weighted_sum_mpi(rgb, xyz, weights, is_bg_depth_inf)
+    return rgb_out, depth_out, transparency_acc, weights
+
+
+def render(rgb, sigma, xyz, use_alpha: bool = False, is_bg_depth_inf: bool = False):
+    """Sigma- or alpha-compositing. Returns (imgs, depth, blend_weights,
+    weights); with use_alpha the blend weights are zeros."""
+    if not use_alpha:
+        return plane_volume_rendering(rgb, sigma, xyz, is_bg_depth_inf)
+    imgs_syn, weights = alpha_composition(sigma, rgb)
+    depth_syn, _ = alpha_composition(sigma, xyz[..., 2:3])
+    return imgs_syn, depth_syn, torch.zeros_like(rgb), weights
+
+
+# -- source pose: distances factor into an (S,) vector times an (H, W) map ----
+
+
+def ray_norms(k_inv: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """||K^-1 [x, y, 1]|| per pixel: (B, 3, 3) -> (B, H, W, 1)."""
+    grid = homogeneous_pixel_grid(h, w, k_inv.device)
+    rays = apply_3x3(k_inv, grid[..., 0], grid[..., 1])
+    return torch.linalg.vector_norm(rays, dim=-1, keepdim=True)
+
+
+def _src_dists(mpi_disparity, k_inv, h: int, w: int) -> torch.Tensor:
+    """(B, S) disparities -> (B, S, H, W, 1) source-sweep inter-plane
+    distances, background pseudo-distance in the last slot."""
+    depth = 1.0 / mpi_disparity
+    ddiff = torch.abs(depth[:, 1:] - depth[:, :-1])
+    dist = ddiff[:, :, None, None, None] * ray_norms(k_inv, h, w)[:, None]
+    return torch.cat([dist, torch.full_like(dist[:, :1], _BG_DIST)], dim=1)
+
+
+def weighted_sum_src(rgb, mpi_disparity, weights, is_bg_depth_inf: bool = False):
+    """weighted_sum_mpi at the source pose, where per-plane z is the plane
+    depth 1/disparity (normalised intrinsics, K[2,2] = 1)."""
+    z = (1.0 / mpi_disparity)[:, :, None, None, None]
+    weights_sum = torch.sum(weights, dim=1)
+    rgb_out = torch.sum(weights * rgb, dim=1)
+    if is_bg_depth_inf:
+        depth_out = torch.sum(weights * z, dim=1) + (1.0 - weights_sum) * 1000.0
+    else:
+        depth_out = torch.sum(weights * z, dim=1) / (weights_sum + 1.0e-5)
+    return rgb_out, depth_out
+
+
+def render_src(rgb, sigma, mpi_disparity, k_inv, use_alpha: bool = False,
+               is_bg_depth_inf: bool = False):
+    """`render` at the source pose from disparities + intrinsics alone.
+    rgb (B, S, H, W, 3); sigma (B, S, H, W, 1); mpi_disparity (B, S);
+    k_inv (B, 3, 3). Returns (imgs, depth, blend_weights, weights)."""
+    h, w = rgb.shape[2], rgb.shape[3]
+    if use_alpha:
+        imgs_syn, weights = alpha_composition(sigma, rgb)
+        z = (1.0 / mpi_disparity)[:, :, None, None, None].expand(sigma.shape)
+        depth_syn, _ = alpha_composition(sigma, z)
+        return imgs_syn, depth_syn, torch.zeros_like(rgb), weights
+    dist = _src_dists(mpi_disparity, k_inv, h, w)
+    transparency = torch.exp(-sigma * dist)
+    alpha = 1.0 - transparency
+    transparency_acc = _shifted_exclusive(torch.cumprod(transparency + 1.0e-6, dim=1))
+    weights = transparency_acc * alpha
+    rgb_out, depth_out = weighted_sum_src(rgb, mpi_disparity, weights, is_bg_depth_inf)
+    return rgb_out, depth_out, transparency_acc, weights
+
+
+# -- target pose -----------------------------------------------------------------
+
+
+def _affine_tgt_xyz(src_xy, depth, g_flat, k_inv_flat, h: int, w: int) -> torch.Tensor:
+    """Target-frame plane xyz evaluated at the clamped warp coords: per plane
+    xyz is affine in source pixel coords, so this replaces warping 3 more
+    channels. src_xy (N, H, W, 2); depth (N,); g_flat (N, 4, 4);
+    k_inv_flat (N, 3, 3). Returns (N, H, W, 3)."""
+    qx = src_xy[..., 0].clamp(0.0, float(w - 1))
+    qy = src_xy[..., 1].clamp(0.0, float(h - 1))
+    m = matmul3(g_flat[:, :3, :3], k_inv_flat) * depth[:, None, None]
+    return apply_3x3(m, qx, qy) + g_flat[:, None, None, :3, 3]
+
+
+def _plane_coords(mpi_disparity_src, g_tgt_src, k_src_inv, k_tgt, h: int, w: int):
+    """Per-plane sample coords, validity and target-frame xyz for every
+    (batch, plane) pair, flattened to B*S: (src_xy, valid, xyz)."""
+    b, s = mpi_disparity_src.shape
+    depth = (1.0 / mpi_disparity_src).reshape(b * s)
+    g_flat = g_tgt_src.repeat_interleave(s, dim=0)
+    k_inv_flat = k_src_inv.repeat_interleave(s, dim=0)
+    src_xy, valid = homography_sample_coords(
+        depth, g_flat, k_inv_flat, k_tgt.repeat_interleave(s, dim=0), h, w
+    )
+    xyz = _affine_tgt_xyz(src_xy, depth, g_flat, k_inv_flat, h, w)
+    return src_xy, valid, xyz
+
+
+def warp_mpi_to_tgt(mpi_rgb_src, mpi_sigma_src, mpi_disparity_src, g_tgt_src,
+                    k_src_inv, k_tgt):
+    """Homography-warp every source plane into the target camera. Only rgb +
+    sigma (4 channels) go through the warp kernel; xyz is evaluated
+    analytically. Returns (tgt_rgb, tgt_sigma, tgt_xyz, valid) with
+    behind-camera sigma zeroed; valid is (B, S, H, W)."""
+    b, s, h, w, _ = mpi_rgb_src.shape
+    src_xy, valid, tgt_xyz = _plane_coords(
+        mpi_disparity_src, g_tgt_src, k_src_inv, k_tgt, h, w
+    )
+    payload = torch.cat([mpi_rgb_src, mpi_sigma_src], dim=-1).reshape(b * s, h, w, 4)
+    warped = grid_sample_pixel(payload, src_xy).reshape(b, s, h, w, 4)
+    tgt_xyz = tgt_xyz.reshape(b, s, h, w, 3)
+    tgt_sigma = torch.where(tgt_xyz[..., 2:3] >= 0.0, warped[..., 3:4], 0.0)
+    return warped[..., 0:3], tgt_sigma, tgt_xyz, valid.reshape(b, s, h, w)
+
+
+def render_tgt_rgb_depth(mpi_rgb_src, mpi_sigma_src, mpi_disparity_src, g_tgt_src,
+                         k_src_inv, k_tgt, use_alpha: bool = False,
+                         is_bg_depth_inf: bool = False):
+    """Dense target render. mpi_rgb_src (B, S, H, W, 3); mpi_sigma_src
+    (B, S, H, W, 1); mpi_disparity_src (B, S); g_tgt_src (B, 4, 4);
+    k_src_inv / k_tgt (B, 3, 3). Returns tgt_rgb (B, H, W, 3), tgt_depth
+    (B, H, W, 1), tgt_mask (B, H, W, 1) = planes landing in the FoV."""
+    tgt_rgb, tgt_sigma, tgt_xyz, valid = warp_mpi_to_tgt(
+        mpi_rgb_src, mpi_sigma_src, mpi_disparity_src, g_tgt_src, k_src_inv, k_tgt
+    )
+    rgb, depth, _, _ = render(
+        tgt_rgb, tgt_sigma, tgt_xyz, use_alpha=use_alpha, is_bg_depth_inf=is_bg_depth_inf
+    )
+    return rgb, depth, torch.sum(valid.to(mpi_rgb_src.dtype), dim=1)[..., None]
+
+
+def _finalize_depth(z_sum, w_sum, is_bg_depth_inf: bool):
+    """Composited z partial sums -> depth, as the dense sigma reductions."""
+    if is_bg_depth_inf:
+        return z_sum + (1.0 - w_sum) * 1000.0
+    return z_sum / (w_sum + 1.0e-5)
+
+
+def streaming_inputs(mpi_rgb_src, mpi_sigma_src, mpi_disparity_src, g_tgt_src,
+                     k_src_inv, k_tgt) -> tuple[torch.Tensor, ...]:
+    """The warp_composite operands of one target render: payload
+    (B, S, 4, H, W) with sigma last, then coords_x, coords_y, dist and
+    target-frame z, each (B, S, H, W) and contiguous."""
+    b, s, h, w, _ = mpi_rgb_src.shape
+    src_xy, _, xyz = _plane_coords(mpi_disparity_src, g_tgt_src, k_src_inv, k_tgt, h, w)
+    xyz = xyz.reshape(b, s, h, w, 3)
+    dist = torch.linalg.vector_norm(xyz[:, 1:] - xyz[:, :-1], dim=-1)
+    dist = torch.cat([dist, torch.full_like(dist[:, :1], _BG_DIST)], dim=1)
+    payload = torch.cat([mpi_rgb_src, mpi_sigma_src], dim=-1).permute(0, 1, 4, 2, 3)
+    coords = src_xy.reshape(b, s, h, w, 2)
+    return (payload.contiguous(), coords[..., 0].contiguous(),
+            coords[..., 1].contiguous(), dist.contiguous(), xyz[..., 2].contiguous())
+
+
+def render_tgt_rgb_depth_streaming(mpi_rgb_src, mpi_sigma_src, mpi_disparity_src,
+                                   g_tgt_src, k_src_inv, k_tgt, use_alpha: bool = False,
+                                   is_bg_depth_inf: bool = False):
+    """Streaming twin of render_tgt_rgb_depth (same signature and outputs):
+    coordinate prep here, then one warp_composite launch for the whole
+    S-plane sweep."""
+    if use_alpha:
+        raise ValueError(
+            "the streaming compositor composites sigma MPIs; alpha MPIs "
+            "(mpi.use_alpha) render with mpi.compositor: dense"
+        )
+    acc = warp_composite(*streaming_inputs(
+        mpi_rgb_src, mpi_sigma_src, mpi_disparity_src, g_tgt_src, k_src_inv, k_tgt
+    ))  # (B, 7, H, W): rgb sums (3), z sum, weight sum, valid count, transmittance
+    depth = _finalize_depth(acc[:, 3, ..., None], acc[:, 4, ..., None], is_bg_depth_inf)
+    return acc[:, 0:3].permute(0, 2, 3, 1), depth, acc[:, 5, ..., None]
+
+
+class Compositor(NamedTuple):
+    """The S-axis reductions a render composites through."""
+
+    render_src: Callable
+    weighted_sum_src: Callable
+    render_tgt_rgb_depth: Callable
+
+
+DENSE_COMPOSITOR = Compositor(render_src, weighted_sum_src, render_tgt_rgb_depth)
+STREAMING_COMPOSITOR = Compositor(render_src, weighted_sum_src,
+                                  render_tgt_rgb_depth_streaming)
+
+
+def compositor_from_config(cfg) -> Compositor:
+    """cfg.mpi.compositor ("dense" | "streaming") -> Compositor."""
+    name = cfg.mpi.compositor
+    if name == "dense":
+        return DENSE_COMPOSITOR
+    if name == "streaming":
+        return STREAMING_COMPOSITOR
+    raise ValueError(f"mpi.compositor={name!r} must be 'dense' or 'streaming'")
