@@ -6,20 +6,31 @@
 From the root of a checkout, on a machine with a CUDA device and nvcc:
   1. prints the card's name and power limit, turns TF32 off;
   2. builds the CUDA kernels from mine_tpu_torch/csrc/;
-  3. holds each kernel against its plain PyTorch version at the main path's
+  3. holds each kernel against its plain PyTorch version at the main paths'
      shapes (rtol = atol = 1e-5): the warp at the dense compositor's
      (32, 4, 384, 512) and at a 756x1008 source, the fused warp-composite
-     at (1, 32, 4, 384, 512) with planes behind the target camera;
-  4. drives the main path at the default configuration's full width
+     at (1, 32, 4, 384, 512) with planes behind the target camera; the
+     warp's backward at the training path's scale-0 (128, 4, 384, 512) and
+     at a 756x1008 source, with and without the coordinate cotangent (its
+     atomics add in a run-dependent order: atol 1e-5 of max |grad_src|);
+  4. drives the serving path at the default configuration's full width
      (ResNet-50, 384x512, S=32, bf16 network) with seeded random weights:
      a RenderEngine (streaming compositor) predicts two images and renders
      1, 5 and 90 poses, a VideoGenerator (dense compositor) renders the
      zoom-in trajectory; the kernels' launch counts must rise by exactly the
      frames rendered, dense and streaming must agree to 1e-4, and a small
      configuration on the card must agree with the same run on the CPU;
-  5. times every kernel (CUDA events), its plain version and, for the warp,
-     torch's grid_sample, beside each kernel's memory bound; times predict
-     and render per frame, and the frames' copy to host memory on its own.
+  5. drives the training path at the same full width (B=4, dense
+     compositor, stratified disparities, 4-scale loss, Adam) on synthetic
+     batches: finite loss and gradient norm, both parameter groups move,
+     the warp and its backward kernel launch 4 times a step; the same steps
+     run twice more with Adam and twice with sgd, to show how far the
+     gradient norm repeats; one train step of a small configuration on the
+     card must agree with the CPU's;
+  6. times every kernel (CUDA events), its plain version and, for the warp
+     and its backward, torch's grid_sample, beside each kernel's memory
+     bound; times predict and render per frame, the frames' copy to host
+     memory on its own, and the train step.
 Every result line is JSON and carries the card's name and power limit; the
 last line is {"ok": true, "device": {...}}. Any failure raises and the exit
 code is not 0. Without a CUDA device, or outside a checkout, it exits non-zero
@@ -28,6 +39,7 @@ before printing any result.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -228,6 +240,38 @@ def main() -> int:
          warp_bilinear_756x1008_err=k3_err, warp_composite_err=k5_err,
          warp_composite_planes_behind_camera=n_behind)
 
+    # the warp's backward at the training path's scale-0 shape (B=4 x S=32
+    # planes) and at the size class of the TPU's banded kernel, both modes
+    k2_cases = {}
+    for label, (n2, h2, w2) in {"train_scale0": (128, h, w), "756x1008": (1, hb, wb)}.items():
+        src2 = torch.rand((n2, 4, h2, w2), generator=gen, device=dev)
+        cx2, cy2 = plane_coords(h2, w2, n2, g_test, dev, gen)
+        g2 = torch.randn((n2, 4, h2, w2), generator=gen, device=dev)
+        k2_cases[label] = (src2, cx2, cy2, g2)
+    k2_errs = {}
+    for label, (src2, cx2, cy2, g2) in k2_cases.items():
+        n2, c2, h2, w2 = src2.shape
+        for mode, src_arg in (("src_only", None), ("with_coords", src2)):
+            got = kw.warp_bilinear_grad(g2, cx2, cy2, h2, w2, src_arg)
+            again = kw.warp_bilinear_grad(g2, cx2, cy2, h2, w2, src_arg)
+            want = kw.warp_bilinear_grad_plain(g2, cx2, cy2, h2, w2, src_arg)
+            tol = dict(rtol=1e-5, atol=1e-5 * want[0].abs().max().item())
+            row = {"grad_src_err": check_close(f"warp_bilinear_grad {label} {mode} grad_src",
+                                               got[0], want[0], **tol),
+                   "grad_src_tolerance": tol,
+                   "run_to_run_max_abs": (got[0] - again[0]).abs().max().item()}
+            if src_arg is not None:
+                for name, a, b in (("grad_x", got[1], want[1]), ("grad_y", got[2], want[2])):
+                    ctol = dict(rtol=1e-5, atol=1e-5 * b.abs().max().item())
+                    row[f"{name}_err"] = check_close(f"warp_bilinear_grad {label} {name}",
+                                                     a, b, **ctol)
+                    row[f"{name}_run_to_run_max_abs"] = (a - again[1 if name == "grad_x" else 2]
+                                                         ).abs().max().item()
+            k2_errs[f"{label}/{mode}"] = row
+            del got, again, want
+    emit(info, phase="kernel_check", kernel="warp_bilinear_grad",
+         shapes={k: list(v[0].shape) for k, v in k2_cases.items()}, results=k2_errs)
+
     # 4. the main path at full width, seeded random weights
     cfg = Config()  # the default configuration: ResNet-50, 384x512, S=32, bf16
     state = init_weights(build_model(cfg), torch.Generator().manual_seed(0)).state_dict()
@@ -269,8 +313,9 @@ def main() -> int:
         raise AssertionError("VideoGenerator (dense) did not render through warp_bilinear")
     torch.cuda.synchronize()
     main_launches = dict(kw.launches)
-    if not all(main_launches.values()):
-        raise AssertionError(f"a kernel of the main path never launched: {main_launches}")
+    serve_kernels = ("warp_bilinear", "warp_composite")
+    if not all(main_launches[k] for k in serve_kernels):
+        raise AssertionError(f"a kernel of the serving path never launched: {main_launches}")
     # launches per rendered frame, from the counts: streaming frames are the
     # padded pose buckets the engine ran, dense frames the video's poses
     launches_per_frame = {
@@ -314,7 +359,149 @@ def main() -> int:
     emit(info, phase="agreement", dense_vs_streaming_max_abs=agree,
          card_vs_cpu_small_max_abs=cpu_gap)
 
-    # 5. timings
+    # 5. the training path at full width: Trainer.fit on synthetic batches
+    from mine_tpu_torch.data.registry import build_dataset
+    from mine_tpu_torch.training.loop import Trainer
+
+    train_cfg = Config().replace(**{"data.name": "synthetic"})  # the default, B=4
+    train_state = init_weights(build_model(train_cfg),
+                               torch.Generator().manual_seed(2)).state_dict()
+    train_steps = 3
+    for batch_size in (4, 2, 1):  # the largest batch that fits the card
+        try:
+            cfg_b = train_cfg.replace(**{"data.per_gpu_batch_size": batch_size})
+            trainer = Trainer(cfg_b, state_dict=train_state)
+            train_ds = build_dataset(cfg_b, "train", batch_size)
+            before = {name: [p.detach().clone() for p in
+                             getattr(trainer.model, name).parameters()][:4]
+                      for name in ("backbone", "decoder")}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kw.reset_launches()
+            logged = trainer.fit(train_ds, max_steps=train_steps)
+            torch.cuda.synchronize()
+            train_launches = dict(kw.launches)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            break
+        except torch.cuda.OutOfMemoryError as exc:
+            emit(info, phase="train_path", batch_size=batch_size, fits=False,
+                 peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 error=str(exc)[:300])
+            trainer = None
+            torch.cuda.empty_cache()
+    else:
+        raise AssertionError("train path: not even B=1 fits the card")
+    moved = {name: max((p.detach() - q).abs().max().item() for p, q in
+                       zip(getattr(trainer.model, name).parameters(), params))
+             for name, params in before.items()}
+    per_step = {k: v / train_steps for k, v in train_launches.items()}
+    if not (math.isfinite(logged["loss"]) and math.isfinite(logged["grad_norm"])):
+        raise AssertionError(f"train path: non-finite loss or grad_norm {logged}")
+    if not all(v > 0 for v in moved.values()):
+        raise AssertionError(f"train path: a parameter group did not move {moved}")
+    if per_step["warp_bilinear"] != 4 or per_step["warp_bilinear_grad"] != 4:
+        raise AssertionError(f"train path: expected 4 warp and 4 warp-backward launches "
+                             f"a step (one render per scale), got {per_step}")
+    emit(info, phase="train_path",
+         config="default (resnet50, 384x512, S=32, bf16, dense, stratified)",
+         batch_size=batch_size, fits=True, steps=train_steps, loss=logged["loss"],
+         grad_norm=logged["grad_norm"], params_moved_max_abs=moved, launches=train_launches,
+         launches_per_step=per_step, peak_allocated_gb=peak_gb)
+
+    # the first step's gradient from the same weights, batch and disparity
+    # draws, twice through the backward kernel and once through its plain
+    # version (WarpBilinear's backward swapped for warp_bilinear_grad_plain):
+    # the kernel must move the gradient no further from the plain scatter
+    # than two of its own runs lie apart, which is the order of the atomics
+    # (the kernel's, cuDNN's and torch's scatters)
+    def first_step(cfg_run):
+        tr = Trainer(cfg_run, state_dict=train_state)
+        out = tr.fit(build_dataset(cfg_run, "train", batch_size), max_steps=1)
+        return out["loss"], {n: p.grad.detach().clone()
+                             for n, p in tr.model.named_parameters() if p.grad is not None}
+
+    first = {"kernel_a": first_step(cfg_b), "kernel_b": first_step(cfg_b)}
+    kernel_grad, before = kw.warp_bilinear_grad, kw.launches["warp_bilinear_grad"]
+    kw.warp_bilinear_grad = kw.warp_bilinear_grad_plain
+    try:
+        first["plain"] = first_step(cfg_b)
+    finally:
+        kw.warp_bilinear_grad = kernel_grad
+    if kw.launches["warp_bilinear_grad"] != before:
+        raise AssertionError("the plain-backward step launched the backward kernel")
+
+    def grad_gaps(a: dict, b: dict) -> dict:
+        floor = 1e-4 * max(v.norm().item() for v in b.values())
+        leaf = max((a[k] - b[k]).norm().item() / max(b[k].norm().item(), floor) for k in b)
+        total = torch.nn.utils.get_total_norm(list(b.values())).item()
+        diff = torch.nn.utils.get_total_norm([a[k] - b[k] for k in b]).item()
+        return {"max_leaf_rel": leaf, "global_rel": diff / total}
+
+    first_gaps = {f"{x}~{y}": grad_gaps(first[x][1], first[y][1])
+                  for x, y in (("kernel_a", "kernel_b"), ("kernel_a", "plain"),
+                               ("kernel_b", "plain"))}
+    losses = [v[0] for v in first.values()]
+    if max(losses) - min(losses) > 1e-6 * abs(losses[0]):
+        raise AssertionError(f"first step: the forward does not repeat {losses}")
+    # the gaps are norms over ~10^7 values, so two samples of the same noise
+    # lie close together (within 2 % of each other on the H100); 3x is a fault
+    for metric, own in first_gaps["kernel_a~kernel_b"].items():
+        if first_gaps["kernel_a~plain"][metric] > 3.0 * own:
+            raise AssertionError(f"first step: the kernel's gradient is further from the "
+                                 f"plain backward's than its own runs lie apart {first_gaps}")
+    emit(info, phase="train_first_step", batch_size=batch_size,
+         loss={k: v[0] for k, v in first.items()},
+         grad_norm={k: torch.nn.utils.get_total_norm(list(v[1].values())).item()
+                    for k, v in first.items()}, gaps=first_gaps)
+    del first
+
+    # the same 3 steps again, twice with Adam and twice with sgd: how far
+    # the gradient norm repeats once the order noise has passed through
+    # updates (Adam's first ones are lr * sign(g) whatever |g|; sgd's lr * g)
+    import tempfile
+
+    repeats = {}
+    for opt_name in ("adam", "sgd"):
+        cfg_r = cfg_b.replace(**{"training.optimizer": opt_name, "training.log_interval": 1})
+        runs = []
+        for _ in range(2):
+            with tempfile.TemporaryDirectory() as ws:
+                Trainer(cfg_r, workspace=ws, state_dict=train_state).fit(
+                    build_dataset(cfg_r, "train", batch_size), max_steps=train_steps)
+                with open(os.path.join(ws, "train_log.jsonl")) as fh:
+                    runs.append([json.loads(ln) for ln in fh])
+        norms = [[ln["grad_norm"] for ln in run] for run in runs]
+        repeats[opt_name] = {
+            "grad_norm": norms, "loss": [[ln["loss"] for ln in run] for run in runs],
+            "grad_norm_rel_diff_per_step": [abs(a / b - 1.0) for a, b in zip(*norms)],
+        }
+    emit(info, phase="train_repeat", batch_size=batch_size, steps=train_steps,
+         main_path_grad_norm=logged["grad_norm"], runs=repeats)
+
+    # one train step of a small configuration on the card against the CPU
+    small_train = small.replace(**{"data.name": "synthetic", "data.per_gpu_batch_size": 2,
+                                   "data.visible_point_count": 32})
+    small_train_state = init_weights(build_model(small_train),
+                                     torch.Generator().manual_seed(3)).state_dict()
+    step_out = {}
+    for where in ("cuda", "cpu"):  # the same first batch, weights and disparity draws
+        tr = Trainer(small_train, device=where, state_dict=small_train_state)
+        out = tr.fit(build_dataset(small_train, "train", 2), max_steps=1)
+        norms = {name: torch.nn.utils.get_total_norm(
+            [p.grad for p in getattr(tr.model, name).parameters()]).item()
+            for name in ("backbone", "decoder")}
+        step_out[where] = (out["loss"], norms)
+    loss_gap = abs(step_out["cuda"][0] / step_out["cpu"][0] - 1.0)
+    norm_gap = {name: abs(step_out["cuda"][1][name] / step_out["cpu"][1][name] - 1.0)
+                for name in ("backbone", "decoder")}
+    if loss_gap > 1e-4 or max(norm_gap.values()) > 1e-3:
+        raise AssertionError(f"small train step: card and CPU disagree, loss rel {loss_gap}, "
+                             f"gradient norms rel {norm_gap}")
+    emit(info, phase="train_agreement", config="128x128, S=4, resnet18, fp32, TF32 off, B=2",
+         loss={"cuda": step_out["cuda"][0], "cpu": step_out["cpu"][0], "rel": loss_gap},
+         grad_norms={"cuda": step_out["cuda"][1], "cpu": step_out["cpu"][1], "rel": norm_gap})
+
+    # 6. timings
     def grid_of(cx, cy, hh, ww):
         return torch.stack([(cx + 0.5) / (0.5 * ww) - 1.0, (cy + 0.5) / (0.5 * hh) - 1.0], -1)
 
@@ -344,7 +531,10 @@ def main() -> int:
         emit(info, phase="timing", kernel="warp_bilinear", case=label, **warp_rows[label])
     kernels.append(dict(
         name="warp_bilinear", route="cuda", source="mine_tpu_torch/csrc/warp.cu",
-        replaces="mine_tpu/ops/pallas/warp.py:365", launches=main_launches["warp_bilinear"],
+        replaces="mine_tpu/ops/pallas/warp.py:365",
+        launches=main_launches["warp_bilinear"] + train_launches["warp_bilinear"],
+        launches_by_path={"serve": main_launches["warp_bilinear"],
+                          "train": train_launches["warp_bilinear"]},
         max_abs_err=k1_err, ms=warp_rows["dense"]["ms"], plain_ms=warp_rows["dense"]["plain_ms"],
         bound_ms=warp_rows["dense"]["bound_ms"], bound_by=warp_rows["dense"]["bound_by"],
         library_ms=warp_rows["dense"]["library_ms"],
@@ -363,8 +553,49 @@ def main() -> int:
     kernels.append(dict(
         name="warp_composite", route="cuda", source="mine_tpu_torch/csrc/warp_composite.cu",
         replaces="mine_tpu/ops/pallas/warp.py:689", launches=main_launches["warp_composite"],
+        launches_by_path={"serve": main_launches["warp_composite"]},
         max_abs_err=k5_err, ms=k5_row["ms"], plain_ms=k5_row["plain_ms"],
         bound_ms=k5_row["bound_ms"], bound_by=k5_row["bound_by"], library_ms=None,
+    ))
+
+    k2_rows = {}
+    for label, mode in (("train_scale0", "src_only"), ("train_scale0", "with_coords"),
+                        ("756x1008", "src_only")):
+        src2, cx2, cy2, g2 = k2_cases[label]
+        n2, c2, h2, w2 = src2.shape
+        src_arg = src2 if mode == "with_coords" else None
+        n_pix = cx2.numel()
+        moved_bytes = nbytes(cx2, cy2, g2) + nbytes(src2)  # grad_src written once
+        flops = n_pix * (20 + 8 * c2)
+        if src_arg is not None:
+            moved_bytes += nbytes(src2) + 2 * n_pix * 4  # src read, grad_x/grad_y written
+            flops += n_pix * 12 * c2
+        b_ms, b_by = bound_ms(moved_bytes, flops)
+        lib_src = src2.clone().requires_grad_()
+        lib_grid = grid_of(cx2, cy2, h2, w2).requires_grad_(src_arg is not None)
+        lib_out = grid_sample(lib_src, lib_grid)
+        lib_inputs = (lib_src,) if src_arg is None else (lib_src, lib_grid)
+        row = dict(
+            shape=list(src2.shape),
+            ms=time_cuda_ms(lambda: kw.warp_bilinear_grad(g2, cx2, cy2, h2, w2, src_arg)),
+            plain_ms=time_cuda_ms(
+                lambda: kw.warp_bilinear_grad_plain(g2, cx2, cy2, h2, w2, src_arg),
+                reps=5, inner=1),
+            library_ms=time_cuda_ms(lambda: torch.autograd.grad(
+                lib_out, lib_inputs, g2, retain_graph=True)),
+            bound_ms=b_ms, bound_by=b_by,
+        )
+        k2_rows[label, mode] = row
+        del lib_out
+        emit(info, phase="timing", kernel="warp_bilinear_grad", case=f"{label}/{mode}", **row)
+    k2_main = k2_rows["train_scale0", "src_only"]
+    kernels.append(dict(
+        name="warp_bilinear_grad", route="cuda", source="mine_tpu_torch/csrc/warp_grad.cu",
+        replaces="mine_tpu/ops/pallas/warp.py:741", launches=train_launches["warp_bilinear_grad"],
+        launches_by_path={"train": train_launches["warp_bilinear_grad"]},
+        max_abs_err=k2_errs["train_scale0/src_only"]["grad_src_err"],
+        ms=k2_main["ms"], plain_ms=k2_main["plain_ms"], bound_ms=k2_main["bound_ms"],
+        bound_by=k2_main["bound_by"], library_ms=k2_main["library_ms"],
     ))
 
     def host_ms(fn, reps: int) -> float:
@@ -416,6 +647,17 @@ def main() -> int:
                 for name, frames in stacked.items()},
         ms_per_frame={f"{name}_{kind}": statistics.median(v)
                       for (name, kind), v in copy_ms.items()})
+
+    timed_batches = list(itertools.islice(train_ds.epoch(2), 7))
+    for batch in timed_batches[:2]:  # warm-up
+        trainer.step(batch)
+    step_ms = statistics.median(host_ms(lambda b=b: trainer.step(b), reps=1)
+                                for b in timed_batches[2:])
+    emit(info, phase="timing", path="train_step", batch_size=batch_size,
+         train_step_ms=step_ms, images_per_s=batch_size / (step_ms / 1e3),
+         peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    emit(info, phase="profile", path="train_step", batch_size=batch_size,
+         **profile_breakdown(lambda: trainer.step(timed_batches[0]), 1))
 
     for label, fn, frames in (("predict", lambda: engine.predict(images[0]), 1),
                               ("render_streaming", lambda: engine.render(entries[0], zoom[:8]), 8),

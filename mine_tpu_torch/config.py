@@ -1,10 +1,13 @@
-"""The configuration the port reads: the `data`, `model` and `mpi` groups of
-mine_tpu/config.py's Config, with the same dot-keys and defaults.
+"""The configuration the port reads: the `data`, `lr`, `model`, `mpi`,
+`loss`, `training` and `mesh` groups of mine_tpu/config.py's Config and the
+`resilience.sentinel_policy` key, with the same dot-keys and defaults.
 
 Config files are the JAX package's flat dot-key YAML (mine_tpu/configs/*.yaml
-are read as data files). Keys of the other groups (lr, loss, training, ...)
-belong to parts not ported yet and are skipped on load; an unknown key inside
-these three groups is an error, as in the JAX loader.
+are read as data files). Keys of the other groups (obs, serving, parallel,
+the rest of resilience) belong to parts not ported yet and are skipped on
+load; an unknown key inside a ported group is an error, as in the JAX loader.
+Keys the port reads but does not honour yet raise where they would take
+effect (`unsupported_training_options`).
 """
 
 from __future__ import annotations
@@ -29,6 +32,15 @@ class DataConfig:
     visible_point_count: int = 256
     num_workers: int = 4
     loader_retries: int = 0
+
+
+@dataclass(frozen=True)
+class LRConfig:
+    backbone_lr: float = 1.0e-3
+    decoder_lr: float = 1.0e-3
+    decay_gamma: float = 0.1
+    decay_steps: tuple[int, ...] = (5, 10)  # epochs, MultiStep-style
+    weight_decay: float = 4.0e-5
 
 
 @dataclass(frozen=True)
@@ -62,10 +74,53 @@ class MPIConfig:
 
 
 @dataclass(frozen=True)
+class LossConfig:
+    smoothness_lambda_v1: float = 0.0
+    smoothness_lambda_v2: float = 0.01
+    smoothness_gmin: float = 2.0
+    smoothness_grad_ratio: float = 0.1
+
+
+@dataclass(frozen=True)
+class TrainingConfig:
+    epochs: int = 15
+    eval_interval: int = 10000
+    pretrained_checkpoint_path: str = ""
+    pretrained_subtrees: tuple[str, ...] = ("backbone", "decoder")
+    src_rgb_blending: bool = True
+    use_multi_scale: bool = True
+    seed: int = 0
+    accum_steps: int = 1
+    resume_from: str = "latest"
+    # "adam" (two-group Adam) or "sgd" (the same groups, no moments)
+    optimizer: str = "adam"
+    log_interval: int = 10
+    checkpoint_interval: int = 5000
+    lpips_weights_path: str = ""
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    data_parallel: int = -1
+    fsdp_parallel: int = 1
+    plane_parallel: int = 1
+
+
+@dataclass(frozen=True)
+class ResilienceConfig:
+    sentinel_policy: str = "off"
+
+
+@dataclass(frozen=True)
 class Config:
     data: DataConfig = field(default_factory=DataConfig)
+    lr: LRConfig = field(default_factory=LRConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     mpi: MPIConfig = field(default_factory=MPIConfig)
+    loss: LossConfig = field(default_factory=LossConfig)
+    training: TrainingConfig = field(default_factory=TrainingConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
 
     def replace(self, **dot_key_values: Any) -> "Config":
         """Functional update by dot-keys: cfg.replace(**{"mpi.num_bins_coarse": 8})."""
@@ -86,6 +141,9 @@ _RETIRED_KEYS = frozenset({
     "data.is_exclude_views",
     "model.backbone_normalization",
     "model.decoder_normalization",
+    "training.fine_tune",
+    "training.sample_interval",
+    "testing.frames_apart",
 })
 
 
@@ -111,7 +169,8 @@ def _coerce(value: Any, target: Any, key: str) -> Any:
     if isinstance(target, str) and target.startswith("tuple"):
         if isinstance(value, str):
             value = [v for v in value.replace(" ", "").split(",") if v]
-        return tuple(float(v) for v in value)
+        elem = float if "float" in target else (str if "str" in target else int)
+        return tuple(elem(v) for v in value)
     return value
 
 
@@ -149,9 +208,40 @@ def load_config(*yaml_paths: str,
         layers.append(json.loads(overrides) if isinstance(overrides, str) else overrides)
     for layer in layers:
         for key, value in layer.items():
-            if key in _RETIRED_KEYS or key.partition(".")[0] not in _GROUPS:
+            group = key.partition(".")[0]
+            if key in _RETIRED_KEYS or group not in _GROUPS \
+                    or (group == "resilience" and key != "resilience.sentinel_policy"):
                 continue
             if key not in flat:
                 raise KeyError(f"unknown config key: {key!r}")
             flat[key] = value
     return from_flat_dict(flat)
+
+
+def unsupported_training_options(cfg: Config) -> list[str]:
+    """The options set away from their defaults that the port's training
+    path does not honour yet, each naming its ROADMAP queue 1 item."""
+    later = "waits for ROADMAP queue 1 item 3 (checkpoints, accumulation, " \
+        "sigma dropout, remat, sentinel)"
+    found = []
+    if cfg.training.accum_steps > 1:
+        found.append(f"training.accum_steps={cfg.training.accum_steps} {later}")
+    if cfg.mpi.sigma_dropout_rate > 0:
+        found.append(f"mpi.sigma_dropout_rate={cfg.mpi.sigma_dropout_rate} {later}")
+    if cfg.model.remat_decoder:
+        found.append(f"model.remat_decoder {later}")
+    if cfg.resilience.sentinel_policy != "off":
+        found.append(f"resilience.sentinel_policy={cfg.resilience.sentinel_policy!r} {later}")
+    if cfg.training.pretrained_checkpoint_path:
+        found.append(f"training.pretrained_checkpoint_path {later}")
+    if cfg.model.pretrained_backbone_path:
+        found.append("model.pretrained_backbone_path: weight loading for training "
+                     f"{later}")
+    if cfg.mpi.num_bins_fine > 0:
+        found.append("mpi.num_bins_fine > 0 waits for ROADMAP queue 1 item 5 "
+                     "(coarse-to-fine)")
+    mesh = cfg.mesh
+    if mesh.data_parallel not in (-1, 1) or mesh.fsdp_parallel > 1 or mesh.plane_parallel > 1:
+        found.append(f"mesh sizes {dataclasses.astuple(mesh)} wait for ROADMAP queue 1 "
+                     "item 5 (parallel/)")
+    return found

@@ -21,7 +21,12 @@ from mine_tpu_torch.config import Config
 from mine_tpu_torch.inference.trajectory import camera_trajectories
 from mine_tpu_torch.ops.geometry import inverse_3x3
 from mine_tpu_torch.ops.mpi_render import render_src
-from mine_tpu_torch.training.step import build_model, make_disparity_list, render_novel_view
+from mine_tpu_torch.training.step import (
+    build_model,
+    make_disparity_list,
+    predict_mpis,
+    render_novel_view,
+)
 from mine_tpu_torch.utils.device import resolve_device
 
 
@@ -53,24 +58,13 @@ def prepare_image(image: np.ndarray, height: int, width: int,
     return t.clamp(0.0, 1.0).contiguous()
 
 
-def _network(cfg: Config, model: torch.nn.Module, img: torch.Tensor,
-             disparity: torch.Tensor) -> torch.Tensor:
-    """The scale-0 MPI (B, S, H, W, 4), fp32, under the model.dtype rule."""
-    if cfg.model.dtype == "bfloat16":
-        with torch.autocast(device_type=img.device.type, dtype=torch.bfloat16):
-            return model(img, disparity)[0]
-    if cfg.model.dtype == "float32":
-        return model(img, disparity)[0]
-    raise ValueError(f"model.dtype={cfg.model.dtype!r} must be bfloat16 or float32")
-
-
 @torch.no_grad()
 def predict_blended_mpi(cfg: Config, model: torch.nn.Module, img: torch.Tensor,
                         disparity: torch.Tensor, k: torch.Tensor):
     """One network pass + source-RGB blending: plane rgb is replaced by the
     source pixels wherever the source view sees them. Returns (mpi_rgb,
     mpi_sigma), (B, S, H, W, 3) and (B, S, H, W, 1)."""
-    mpi = _network(cfg, model, img, disparity)
+    mpi = predict_mpis(cfg, model, img, disparity)[0]
     mpi_rgb, mpi_sigma = mpi[..., 0:3], mpi[..., 3:4]
     _, _, blend_weights, _ = render_src(
         mpi_rgb, mpi_sigma, disparity, inverse_3x3(k),

@@ -1,12 +1,15 @@
-"""Carry the JAX package's MPINetwork variables into the port's state dict.
+"""Carry MPINetwork variables and gradients between the JAX package's layout
+and the port's, in both directions.
 
-The input is the flat `.npz` layout that mine_tpu/models/pretrained.py reads
-and tools/convert_resnet.py / tools/convert_mine_checkpoint.py write:
+The JAX side is the flat `.npz` layout that mine_tpu/models/pretrained.py
+reads and tools/convert_resnet.py / tools/convert_mine_checkpoint.py write:
 `params/backbone/Bottleneck_3/Conv_1/kernel`,
 `batch_stats/decoder/upconv_4_0/SyncBatchNorm_0/BatchNorm_0/mean`, ...
-This is the exact inverse of those two converters: HWIO kernels become OIHW,
-BatchNorm scale/bias/mean/var become weight/bias/running_mean/running_var.
-Strict both ways: a missing key raises KeyError, a leftover one ValueError.
+JAX to the port is the exact inverse of those two converters: HWIO kernels
+become OIHW, BatchNorm scale/bias/mean/var become
+weight/bias/running_mean/running_var. A gradient tree is the `params/` part
+of that layout. Strict both ways: a missing key raises KeyError, a leftover
+one ValueError.
 """
 
 from __future__ import annotations
@@ -85,31 +88,82 @@ def _mapping(num_layers: int) -> list[tuple[str, str, bool]]:
     return rows
 
 
+def _check_keys(have, want, what: str) -> None:
+    missing = sorted(set(want) - set(have))
+    if missing:
+        raise KeyError(f"{len(missing)} {what} missing: {missing[:4]}...")
+    leftover = sorted(set(have) - set(want))
+    if leftover:
+        raise ValueError(
+            f"{len(leftover)} {what} have no place in the other layout: {leftover[:4]}..."
+        )
+
+
+def _from_jax(flat: Mapping[str, np.ndarray], rows) -> dict[str, torch.Tensor]:
+    out = {}
+    for torch_key, jax_key, is_kernel in rows:
+        arr = np.asarray(flat[jax_key], dtype=np.float32)
+        if is_kernel:
+            arr = np.transpose(arr, (3, 2, 0, 1))  # HWIO -> OIHW
+        out[torch_key] = torch.from_numpy(np.ascontiguousarray(arr))
+    return out
+
+
+def _to_jax(tensors: Mapping[str, torch.Tensor], rows) -> dict[str, np.ndarray]:
+    flat = {}
+    for torch_key, jax_key, is_kernel in rows:
+        t = tensors[torch_key].detach().cpu()
+        arr = (t if t.dtype == torch.float64 else t.float()).numpy()  # bf16 -> fp32
+        flat[jax_key] = np.transpose(arr, (2, 3, 1, 0)) if is_kernel else arr  # OIHW -> HWIO
+    return flat
+
+
+def _param_rows(num_layers: int) -> list[tuple[str, str, bool]]:
+    return [r for r in _mapping(num_layers) if r[1].startswith("params/")]
+
+
 def jax_variables_to_torch(flat: Mapping[str, np.ndarray],
                            num_layers: int) -> dict[str, torch.Tensor]:
     """Flat JAX variables of a 4-scale MPINetwork -> the port's state dict
     (fp32, CPU tensors).
     BatchNorm's num_batches_tracked has no JAX counterpart and is set to 0."""
     rows = _mapping(num_layers)
-    missing = [jk for _, jk, _ in rows if jk not in flat]
-    if missing:
-        raise KeyError(
-            f"{len(missing)} variables missing for resnet{num_layers}: "
-            f"{missing[:4]}..."
-        )
-    leftover = sorted(set(flat) - {jk for _, jk, _ in rows})
-    if leftover:
-        raise ValueError(
-            f"{len(leftover)} variables have no place in the port's MPINetwork: "
-            f"{leftover[:4]}..."
-        )
-    state: dict[str, torch.Tensor] = {}
-    for torch_key, jax_key, is_kernel in rows:
-        arr = np.asarray(flat[jax_key], dtype=np.float32)
-        if is_kernel:
-            arr = np.transpose(arr, (3, 2, 0, 1))  # HWIO -> OIHW
-        state[torch_key] = torch.from_numpy(np.ascontiguousarray(arr))
+    _check_keys(flat, [jk for _, jk, _ in rows], f"variables for resnet{num_layers}")
+    state = _from_jax(flat, rows)
+    for torch_key, _, _ in rows:
         if torch_key.endswith(".running_var"):
             state[torch_key[: -len("running_var")] + "num_batches_tracked"] = \
                 torch.tensor(0, dtype=torch.long)
     return state
+
+
+def jax_grads_to_torch(flat_grads: Mapping[str, np.ndarray],
+                       num_layers: int) -> dict[str, torch.Tensor]:
+    """A flat JAX gradient tree ("params/..." keys) -> {port parameter name:
+    gradient}, fp32 CPU tensors."""
+    rows = _param_rows(num_layers)
+    _check_keys(flat_grads, [jk for _, jk, _ in rows], f"gradients for resnet{num_layers}")
+    return _from_jax(flat_grads, rows)
+
+
+def torch_to_jax_variables(state: Mapping[str, torch.Tensor],
+                           num_layers: int) -> dict[str, np.ndarray]:
+    """The port's state dict -> flat JAX variables ("params/...",
+    "batch_stats/..."); num_batches_tracked has no JAX counterpart and is
+    dropped."""
+    rows = _mapping(num_layers)
+    have = [k for k in state if not k.endswith(".num_batches_tracked")]
+    _check_keys(have, [tk for tk, _, _ in rows], f"tensors for resnet{num_layers}")
+    return _to_jax(state, rows)
+
+
+def torch_grads_to_jax(model: torch.nn.Module, num_layers: int) -> dict[str, np.ndarray]:
+    """The `.grad` of every parameter of `model` -> a flat JAX gradient tree
+    ("params/..." keys). A parameter without a gradient raises."""
+    grads = {name: p.grad for name, p in model.named_parameters()}
+    absent = sorted(k for k, g in grads.items() if g is None)
+    if absent:
+        raise ValueError(f"{len(absent)} parameters have no gradient: {absent[:4]}...")
+    rows = _param_rows(num_layers)
+    _check_keys(grads, [tk for tk, _, _ in rows], f"parameters for resnet{num_layers}")
+    return _to_jax(grads, rows)

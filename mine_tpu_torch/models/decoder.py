@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mine_tpu_torch.models.embedder import embed_dim, positional_encode
+from mine_tpu_torch.models.norm import BatchNorm2d
 
 NUM_CH_DEC = (16, 32, 64, 128, 256)
 
@@ -45,7 +46,7 @@ class ConvBlock(nn.Module):
     def __init__(self, c_in: int, c_out: int):
         super().__init__()
         self.conv = Conv3x3(c_in, c_out)
-        self.bn = nn.BatchNorm2d(c_out)
+        self.bn = BatchNorm2d(c_out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.elu(self.bn(self.conv(x)))
@@ -55,7 +56,7 @@ def _conv_bn_leaky(c_in: int, c_out: int, kernel: int) -> nn.Sequential:
     """k x k zero-padded conv (no bias) -> BN -> LeakyReLU(0.1)."""
     return nn.Sequential(
         nn.Conv2d(c_in, c_out, kernel, padding=(kernel - 1) // 2, bias=False),
-        nn.BatchNorm2d(c_out),
+        BatchNorm2d(c_out),
         nn.LeakyReLU(0.1),
     )
 
@@ -116,7 +117,9 @@ class MPIDecoder(nn.Module):
                 x = torch.cat([x, skips[i - 1]], dim=1)
             x = self.convs[tuple_to_str(("upconv", i, 1))](x)
             if i in self.scales:
-                raw = self.convs[tuple_to_str(("dispconv", i))](x).float()
+                raw = self.convs[tuple_to_str(("dispconv", i))](x)
+                # the MPI is fp32 under bf16 autocast; a float64 model keeps float64
+                raw = raw.to(torch.promote_types(raw.dtype, torch.float32))
                 h, w = raw.shape[2], raw.shape[3]
                 mpi = raw.reshape(b, s, 4, h, w).permute(0, 1, 3, 4, 2)
                 rgb = torch.sigmoid(mpi[..., 0:3])

@@ -3,14 +3,16 @@
 torchvision's module names (conv1, bn1, layer{k}.{b}.conv{c}/bn{c},
 downsample.{0,1}) nested under `encoder.`, the layout of the reference MINE
 checkpoints. ImageNet normalisation runs inline on the [0, 1] input;
-BatchNorm eps is 1e-5. Returns the 5-feature pyramid at strides
-2/4/8/16/32, NCHW.
+BatchNorm (models/norm.py) has the JAX package's semantics. Returns the
+5-feature pyramid at strides 2/4/8/16/32, NCHW.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from mine_tpu_torch.models.norm import BatchNorm2d
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -30,7 +32,7 @@ def _downsample(c_in: int, c_out: int, stride: int) -> nn.Sequential | None:
     if stride == 1 and c_in == c_out:
         return None
     return nn.Sequential(
-        nn.Conv2d(c_in, c_out, 1, stride, bias=False), nn.BatchNorm2d(c_out)
+        nn.Conv2d(c_in, c_out, 1, stride, bias=False), BatchNorm2d(c_out)
     )
 
 
@@ -38,9 +40,9 @@ class BasicBlock(nn.Module):
     def __init__(self, c_in: int, c_out: int, stride: int):
         super().__init__()
         self.conv1 = nn.Conv2d(c_in, c_out, 3, stride, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(c_out)
+        self.bn1 = BatchNorm2d(c_out)
         self.conv2 = nn.Conv2d(c_out, c_out, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(c_out)
+        self.bn2 = BatchNorm2d(c_out)
         self.downsample = _downsample(c_in, c_out, stride)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -55,11 +57,11 @@ class Bottleneck(nn.Module):
         super().__init__()
         squeeze = c_out // 4
         self.conv1 = nn.Conv2d(c_in, squeeze, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(squeeze)
+        self.bn1 = BatchNorm2d(squeeze)
         self.conv2 = nn.Conv2d(squeeze, squeeze, 3, stride, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(squeeze)
+        self.bn2 = BatchNorm2d(squeeze)
         self.conv3 = nn.Conv2d(squeeze, c_out, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(c_out)
+        self.bn3 = BatchNorm2d(c_out)
         self.downsample = _downsample(c_in, c_out, stride)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -81,7 +83,7 @@ class ResNet(nn.Module):
         block = Bottleneck if num_layers in BOTTLENECK else BasicBlock
         widths = encoder_channels(num_layers)
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
         c_in = 64
         for stage, n_blocks in enumerate(STAGE_BLOCKS[num_layers]):
@@ -109,11 +111,13 @@ class ResNetEncoder(nn.Module):
         super().__init__()
         self.num_ch_enc = encoder_channels(num_layers)
         self.encoder = ResNet(num_layers)
-        self.register_buffer("mean", torch.tensor(IMAGENET_MEAN).view(1, 3, 1, 1),
-                             persistent=False)
-        self.register_buffer("std", torch.tensor(IMAGENET_STD).view(1, 3, 1, 1),
-                             persistent=False)
+        # float64, rounded to the input's dtype at use: a float64 model gets
+        # the constants unrounded
+        self.register_buffer("mean", torch.tensor(IMAGENET_MEAN, dtype=torch.float64
+                                                  ).view(1, 3, 1, 1), persistent=False)
+        self.register_buffer("std", torch.tensor(IMAGENET_STD, dtype=torch.float64
+                                                 ).view(1, 3, 1, 1), persistent=False)
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
-        x = (x.permute(0, 3, 1, 2) - self.mean) / self.std
+        x = (x.permute(0, 3, 1, 2) - self.mean.to(x.dtype)) / self.std.to(x.dtype)
         return self.encoder(x)

@@ -59,3 +59,11 @@ def homogeneous_pixel_grid(height: int, width: int,
         indexing="ij",
     )
     return torch.stack([x, y, torch.ones_like(x)], dim=-1)
+
+
+def scale_intrinsics(k: torch.Tensor, scale: int) -> torch.Tensor:
+    """Divide K by 2**scale, keeping K[2,2] = 1 (the loss pyramid's
+    intrinsics at scale `scale`)."""
+    k = k / (2.0**scale)
+    k[..., 2, 2] = 1.0
+    return k

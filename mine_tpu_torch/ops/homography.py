@@ -42,14 +42,17 @@ def homography_sample_coords(
     """Source-pixel sample locations for every target pixel, plus validity.
 
     plane_depth: (B,); g_tgt_src (B, 4, 4); k_src_inv / k_tgt (B, 3, 3).
-    Returns src_xy (B, Ht, Wt, 2) fp32 and valid (B, Ht, Wt) bool: the target
-    pixels that land inside the open interval (-1, W) x (-1, H).
+    Returns src_xy (B, Ht, Wt, 2), fp32 (float64 for float64 poses), and
+    valid (B, Ht, Wt) bool: the target pixels that land inside the open
+    interval (-1, W) x (-1, H).
     """
     h_tgt = tgt_height or h_src
     w_tgt = tgt_width or w_src
     h_src_tgt = inverse_3x3(
         build_plane_homography(g_tgt_src, k_src_inv, k_tgt, plane_depth)
-    ).float()
+    )
+    # coordinates are at least fp32 whatever the payload's dtype
+    h_src_tgt = h_src_tgt.to(torch.promote_types(h_src_tgt.dtype, torch.float32))
     grid = homogeneous_pixel_grid(h_tgt, w_tgt, h_src_tgt.device)
     src_homo = apply_3x3(h_src_tgt, grid[..., 0], grid[..., 1])  # (B, Ht, Wt, 3)
     # guard the perspective divide: |z| < 1e-8 (a plane edge-on to the target

@@ -1,21 +1,28 @@
 """The warp layer's hand-written CUDA kernels, their plain PyTorch versions,
 and launch counts.
 
-Counterpart of mine_tpu/ops/pallas/warp.py. Two kernels:
+Counterpart of mine_tpu/ops/pallas/warp.py and of the custom_vjp in
+mine_tpu/ops/grid_sample.py. Three kernels:
 
   * `warp_bilinear` (csrc/warp.cu): bilinear border-padded sampling,
     channels-major. Replaces warp_bilinear_chw and its banded twin
     warp_bilinear_chw_banded: device memory has no VMEM ceiling, so one
     kernel covers both source sizes.
+  * `warp_bilinear_grad` (csrc/warp_grad.cu): its backward, the atomicAdd
+    scatter of the source cotangent with the coordinate cotangent fused in.
+    Replaces warp_bilinear_grad_chw and warp_bilinear_grad_chw_banded, plus
+    the save_corners forward pass and the jnp coordinate formula of
+    grid_sample.py::_pallas_bwd.
   * `warp_composite` (csrc/warp_composite.cu): the fused per-plane warp and
     front-to-back over-composite of the streaming compositor. Replaces
-    warp_composite_chw.
+    warp_composite_chw. Forward-only: a call that would need a gradient
+    raises instead of returning a detached result.
 
-Each wrapper runs its plain version for tensors on the CPU and its kernel for
-tensors on a CUDA device; there is no other path. Both are forward-only (the
-backward kernels come with training), so a call that would need a gradient
-raises instead of returning a detached result. `launches` counts kernel
-launches, one per wrapper call that reached the card.
+`warp_bilinear` is differentiable: it runs through the autograd Function
+`WarpBilinear`, whose backward is `warp_bilinear_grad`. Each wrapper runs
+its plain version for tensors on the CPU and its kernel for tensors on a
+CUDA device; there is no other path. `launches` counts kernel launches, one
+per wrapper call that reached the card.
 """
 
 from __future__ import annotations
@@ -23,17 +30,19 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from mine_tpu_torch.ops.kernels import build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "warp": {"mine_warp_bilinear_f32": [_P] * 4 + [_I] * 6 + [_P]},
+    "warp_grad": {"mine_warp_bilinear_grad_f32": [_P] * 7 + [_I] * 6 + [_P]},
     "warp_composite": {"mine_warp_composite_f32": [_P] * 6 + [_I] * 7 + [_P]},
 }
 COMPOSITE_CHANNELS = 4  # rgb + sigma; warp_composite.cu is built for this C alone
 
-launches = {"warp_bilinear": 0, "warp_composite": 0}
+launches = {"warp_bilinear": 0, "warp_bilinear_grad": 0, "warp_composite": 0}
 
 
 def reset_launches() -> None:
@@ -82,6 +91,44 @@ def warp_bilinear_plain(src: torch.Tensor, coords_x: torch.Tensor,
     return top * (1.0 - wy) + bot * wy
 
 
+def warp_bilinear_grad_plain(g: torch.Tensor, coords_x: torch.Tensor,
+                             coords_y: torch.Tensor, h: int, w: int,
+                             src: torch.Tensor | None = None):
+    """Plain PyTorch version of the warp's backward. g (N, C, Ho, Wo) is the
+    output cotangent; coords (N, Ho, Wo). Returns (grad_src (N, C, h, w),
+    grad_x, grad_y): the source cotangent is a scatter_add of g times each
+    valid corner's weight; with `src` also the coordinate cotangents
+    (N, Ho, Wo) of mine_tpu/ops/grid_sample.py:152-162, zero where the
+    border clamp saturates. Without `src` grad_x and grad_y are None."""
+    n, c = g.shape[:2]
+    wx, wy, x0, y0 = _prep_coords(coords_x, coords_y, h, w)
+    wx, wy = wx[:, None], wy[:, None]
+    grad = g.new_zeros((n, c, h * w))
+    # (dy, dx, weight) of the four corners, the Pallas kernel's products
+    for dy, dx, wgt in ((0, 0, (1.0 - wx) * (1.0 - wy)), (0, 1, wx * (1.0 - wy)),
+                        (1, 0, (1.0 - wx) * wy), (1, 1, wx * wy)):
+        xi, yi = x0 + dx, y0 + dy
+        valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+        idx = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).reshape(n, 1, -1)
+        vals = torch.where(valid[:, None], g * wgt, 0.0).reshape(n, c, -1)
+        grad.scatter_add_(2, idx.expand(n, c, -1), vals)
+    grad = grad.reshape(n, c, h, w)
+    if src is None:
+        return grad, None, None
+    flat = src.reshape(n, c, h * w)
+    a00 = _corner(flat, y0, x0, h, w)
+    a01 = _corner(flat, y0, x0 + 1, h, w)
+    a10 = _corner(flat, y0 + 1, x0, h, w)
+    a11 = _corner(flat, y0 + 1, x0 + 1, h, w)
+    dx = (a01 - a00) * (1.0 - wy) + (a11 - a10) * wy
+    dy = (a10 - a00) * (1.0 - wx) + (a11 - a01) * wx
+    in_x = (coords_x >= 0.0) & (coords_x <= w - 1.0)
+    in_y = (coords_y >= 0.0) & (coords_y <= h - 1.0)
+    grad_x = torch.where(in_x, torch.sum(g * dx, dim=1), 0.0)
+    grad_y = torch.where(in_y, torch.sum(g * dy, dim=1), 0.0)
+    return grad, grad_x, grad_y
+
+
 def warp_composite_plain(src: torch.Tensor, coords_x: torch.Tensor,
                          coords_y: torch.Tensor, dist: torch.Tensor,
                          z: torch.Tensor) -> torch.Tensor:
@@ -119,13 +166,8 @@ def warp_composite_plain(src: torch.Tensor, coords_x: torch.Tensor,
 
 def _route(name: str, *tensors: torch.Tensor) -> bool:
     """True for the kernel, False for the plain version. Raises on a call the
-    kernel cannot take: a gradient request, mixed devices, a device that is
-    neither the CPU nor CUDA, or (on CUDA) a non-fp32 or non-contiguous
-    input."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name} is forward-only; its backward comes with the training port"
-        )
+    kernel cannot take: mixed devices, a device that is neither the CPU nor
+    CUDA, or (on CUDA) a non-fp32 or non-contiguous input."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"{name}: inputs on several devices {sorted(map(str, devices))}")
@@ -144,11 +186,12 @@ def _route(name: str, *tensors: torch.Tensor) -> bool:
 
 def warp_bilinear(src: torch.Tensor, coords_x: torch.Tensor,
                   coords_y: torch.Tensor) -> torch.Tensor:
-    """Bilinear border-padded sampling, channels-major.
+    """Bilinear border-padded sampling, channels-major, differentiable in all
+    three inputs (through WarpBilinear).
 
     src: (N, C, H, W); coords_x/coords_y: (N, Ho, Wo) source-pixel coords.
-    Returns (N, C, Ho, Wo). CUDA tensors launch csrc/warp.cu; CPU tensors
-    take warp_bilinear_plain.
+    Returns (N, C, Ho, Wo). CUDA tensors launch csrc/warp.cu forward and
+    csrc/warp_grad.cu backward; CPU tensors take the plain versions.
     """
     if src.dim() != 4 or coords_x.dim() != 3 or coords_x.shape != coords_y.shape \
             or coords_x.shape[0] != src.shape[0]:
@@ -156,6 +199,12 @@ def warp_bilinear(src: torch.Tensor, coords_x: torch.Tensor,
             f"warp_bilinear: src (N,C,H,W) and coords (N,Ho,Wo), got "
             f"{tuple(src.shape)}, {tuple(coords_x.shape)}, {tuple(coords_y.shape)}"
         )
+    return WarpBilinear.apply(src, coords_x, coords_y)
+
+
+def _warp_bilinear_forward(src: torch.Tensor, coords_x: torch.Tensor,
+                           coords_y: torch.Tensor) -> torch.Tensor:
+    """The forward launch (CUDA) or plain version (CPU) of warp_bilinear."""
     if not _route("warp_bilinear", src, coords_x, coords_y):
         return warp_bilinear_plain(src, coords_x, coords_y)
     n, c, h, w = src.shape
@@ -172,6 +221,74 @@ def warp_bilinear(src: torch.Tensor, coords_x: torch.Tensor,
     build.check(lib, code, "warp_bilinear")
     launches["warp_bilinear"] += 1
     return out
+
+
+def warp_bilinear_grad(g: torch.Tensor, coords_x: torch.Tensor,
+                       coords_y: torch.Tensor, h: int, w: int,
+                       src: torch.Tensor | None = None):
+    """Backward of warp_bilinear: (grad_src (N, C, h, w), grad_x, grad_y).
+
+    g: (N, C, Ho, Wo) output cotangent; coords: (N, Ho, Wo). With `src`
+    (N, C, h, w) the coordinate cotangents (N, Ho, Wo) are computed too;
+    without it they are None and the kernel skips its corner reads. CUDA
+    tensors launch csrc/warp_grad.cu; CPU tensors take
+    warp_bilinear_grad_plain.
+    """
+    n, c, ho, wo = g.shape if g.dim() == 4 else (None,) * 4
+    if g.dim() != 4 or coords_x.shape != (n, ho, wo) or coords_y.shape != (n, ho, wo) \
+            or (src is not None and src.shape != (n, c, h, w)):
+        raise ValueError(
+            f"warp_bilinear_grad: g (N,C,Ho,Wo), coords (N,Ho,Wo) and src "
+            f"(N,C,{h},{w}), got {tuple(g.shape)}, {tuple(coords_x.shape)}, "
+            f"{tuple(coords_y.shape)}, {None if src is None else tuple(src.shape)}"
+        )
+    operands = (g, coords_x, coords_y) + (() if src is None else (src,))
+    if not _route("warp_bilinear_grad", *operands):
+        return warp_bilinear_grad_plain(g, coords_x, coords_y, h, w, src)
+    grad_src = torch.zeros((n, c, h, w), dtype=torch.float32, device=g.device)
+    grad_x = grad_y = None
+    if src is not None:
+        grad_x = torch.zeros((n, ho, wo), dtype=torch.float32, device=g.device)
+        grad_y = torch.zeros((n, ho, wo), dtype=torch.float32, device=g.device)
+    if g.numel() == 0 or grad_src.numel() == 0:
+        return grad_src, grad_x, grad_y
+    lib = build.load("warp_grad", _SIGNATURES["warp_grad"])
+    with torch.cuda.device(g.device):
+        code = lib.mine_warp_bilinear_grad_f32(
+            g.data_ptr(), coords_x.data_ptr(), coords_y.data_ptr(),
+            None if src is None else src.data_ptr(), grad_src.data_ptr(),
+            None if grad_x is None else grad_x.data_ptr(),
+            None if grad_y is None else grad_y.data_ptr(),
+            n, c, h, w, ho, wo, torch.cuda.current_stream().cuda_stream,
+        )
+    build.check(lib, code, "warp_bilinear_grad")
+    launches["warp_bilinear_grad"] += 1
+    return grad_src, grad_x, grad_y
+
+
+class WarpBilinear(torch.autograd.Function):
+    """warp_bilinear with its backward kernel (the counterpart of the JAX
+    package's custom_vjp _grid_sample_pallas). The source is kept for the
+    backward only when a coordinate needs a gradient: the source cotangent
+    needs the coordinates alone."""
+
+    @staticmethod
+    def forward(ctx, src, coords_x, coords_y):
+        need_coords = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
+        ctx.src_hw = tuple(src.shape[2:])
+        ctx.save_for_backward(coords_x, coords_y, src if need_coords else None)
+        return _warp_bilinear_forward(src, coords_x, coords_y)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        coords_x, coords_y, src = ctx.saved_tensors
+        grad_src, grad_x, grad_y = warp_bilinear_grad(
+            g.contiguous(), coords_x, coords_y, *ctx.src_hw, src
+        )
+        return (grad_src if ctx.needs_input_grad[0] else None,
+                grad_x if ctx.needs_input_grad[1] else None,
+                grad_y if ctx.needs_input_grad[2] else None)
 
 
 def warp_composite(src: torch.Tensor, coords_x: torch.Tensor,
@@ -198,6 +315,12 @@ def warp_composite(src: torch.Tensor, coords_x: torch.Tensor,
         raise ValueError(
             f"warp_composite: C={src.shape[2]} outside the one channel count it "
             f"takes, {COMPOSITE_CHANNELS} (rgb + sigma)"
+        )
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (src, coords_x, coords_y, dist, z)):
+        raise NotImplementedError(
+            "warp_composite is forward-only; the streaming compositor's "
+            "training backward is ROADMAP queue 1 item 1"
         )
     if not _route("warp_composite", src, coords_x, coords_y, dist, z):
         return warp_composite_plain(src, coords_x, coords_y, dist, z)

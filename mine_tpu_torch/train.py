@@ -1,0 +1,43 @@
+"""Training CLI: `python -m mine_tpu_torch.train --extra_config
+'{"data.name": "synthetic"}'`.
+
+Config layers are the JAX package's flat dot-key YAML files (e.g.
+mine_tpu/configs/llff.yaml) over the defaults, then the --extra_config JSON.
+The run is on the CUDA device unless --device cpu is given. The loss dict is
+logged every training.log_interval steps, and appended to
+<workspace>/train_log.jsonl.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+
+from mine_tpu_torch.config import load_config
+from mine_tpu_torch.data.registry import build_dataset
+from mine_tpu_torch.training.loop import Trainer
+
+
+def main(argv: list[str] | None = None) -> dict[str, float]:
+    parser = argparse.ArgumentParser(description=__doc__,
+                                     formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("--config", action="append", default=[],
+                        help="YAML config layer(s), later override earlier; the "
+                             "defaults are always implied first")
+    parser.add_argument("--extra_config", default=None,
+                        help="JSON dict of final dot-key overrides")
+    parser.add_argument("--workspace", default="workspace/run")
+    parser.add_argument("--device", default=None, help="cuda (default) or cpu")
+    parser.add_argument("--max_steps", type=int, default=None,
+                        help="stop after this many updates (default: all epochs)")
+    args = parser.parse_args(argv)
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
+
+    cfg = load_config(*args.config, overrides=args.extra_config)
+    trainer = Trainer(cfg, args.workspace, device=args.device)
+    train_ds = build_dataset(cfg, "train", trainer.batch_size)
+    return trainer.fit(train_ds, max_steps=args.max_steps)
+
+
+if __name__ == "__main__":
+    main()

@@ -46,8 +46,9 @@ def test_no_port_file_imports_jax_or_the_jax_package():
 
 
 def test_import_and_cpu_run_leave_jax_unloaded(tmp_path):
-    """Import every module of the port and run a CPU predict/render in a
-    fresh interpreter; neither jax nor mine_tpu may end up loaded."""
+    """Import every module of the port and run a CPU predict/render and a
+    CPU train step in a fresh interpreter; neither jax nor mine_tpu may end
+    up loaded."""
     script = textwrap.dedent("""
         import importlib, pkgutil, sys
         import numpy as np, torch
@@ -65,6 +66,13 @@ def test_import_and_cpu_run_leave_jax_unloaded(tmp_path):
         rgb, disp = engine.render(engine.predict(np.zeros((64, 64, 3), np.uint8)),
                                   np.eye(4, dtype=np.float32)[None])
         assert rgb.shape == (1, 128, 128, 3) and np.isfinite(rgb).all()
+        from mine_tpu_torch.data.registry import build_dataset
+        from mine_tpu_torch.training.loop import Trainer
+        cfg = cfg.replace(**{"data.name": "synthetic", "data.per_gpu_batch_size": 1,
+                             "data.visible_point_count": 8, "model.dtype": "float32"})
+        trainer = Trainer(cfg, device="cpu")
+        logged = trainer.fit(build_dataset(cfg, "train", 1), max_steps=1)
+        assert np.isfinite(logged["loss"])
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "flax", "mine_tpu"))
         print("LOADED", loaded)
@@ -91,6 +99,13 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         RenderEngine(Config().replace(**{"model.num_layers": 18}), {})
+    from mine_tpu_torch import train
+    from mine_tpu_torch.training.loop import Trainer
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(Config().replace(**{"model.num_layers": 18}))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--extra_config", '{"data.name": "synthetic", "model.num_layers": 18}'])
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):

@@ -205,11 +205,13 @@ def test_infer_cli_writes_videos(weights, tmp_path):
 @pytest.mark.parametrize("name", sorted(
     f[:-5] for f in os.listdir(CONFIGS_DIR) if f.endswith(".yaml")))
 def test_config_files_load_as_in_jax(name):
-    """The shipped YAMLs, read as data files, give the port the same data,
-    model and mpi values the JAX loader gives."""
+    """The shipped YAMLs, read as data files, give the port every key and
+    value the JAX loader gives in the groups the port copies whole (data, lr,
+    model, mpi, loss, training, mesh), and resilience.sentinel_policy."""
     paths = [os.path.join(CONFIGS_DIR, "default.yaml"), os.path.join(CONFIGS_DIR, f"{name}.yaml")]
     got = to_flat_dict(load_config(*paths))
     want = {k: v for k, v in jax_flat_dict(jax_load_config(*paths)).items()
-            if k.split(".")[0] in ("data", "model", "mpi")}
+            if k.split(".")[0] in ("data", "lr", "model", "mpi", "loss", "training", "mesh")
+            or k == "resilience.sentinel_policy"}
     assert got == want
 

@@ -123,14 +123,17 @@ def test_cpu_tensors_take_the_plain_version(rng):
     torch.testing.assert_close(kw.warp_bilinear(src, cx, cy),
                                kw.warp_bilinear_plain(src, cx, cy), rtol=0, atol=0)
     kw.warp_composite(src[:, None], cx[:, None], cy[:, None], cx[:, None], cy[:, None])
-    assert kw.launches == {"warp_bilinear": 0, "warp_composite": 0}
+    src.requires_grad_()
+    kw.warp_bilinear(src, cx, cy).sum().backward()
+    assert src.grad is not None
+    assert kw.launches == {"warp_bilinear": 0, "warp_bilinear_grad": 0, "warp_composite": 0}
 
 
 def test_wrappers_refuse_what_the_kernels_cannot_do():
     src = torch.rand(1, 4, 8, 16)
     cx, cy = torch.rand(1, 8, 16), torch.rand(1, 8, 16)
     with pytest.raises(NotImplementedError, match="forward-only"):
-        kw.warp_bilinear(src.requires_grad_(), cx, cy)
+        kw.warp_composite(src[:, None].requires_grad_(), *(cx[:, None],) * 4)
     with pytest.raises(ValueError, match="coords"):
         kw.warp_bilinear(torch.rand(1, 4, 8, 16), cx[0], cy[0])
     with pytest.raises(ValueError, match="outside"):
