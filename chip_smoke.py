@@ -9,28 +9,36 @@ From the root of a checkout, on a machine with a CUDA device and nvcc:
   3. holds each kernel against its plain PyTorch version at the main paths'
      shapes (rtol = atol = 1e-5): the warp at the dense compositor's
      (32, 4, 384, 512) and at a 756x1008 source, the fused warp-composite
-     at (1, 32, 4, 384, 512) with planes behind the target camera; the
-     warp's backward at the training path's scale-0 (128, 4, 384, 512) and
-     at a 756x1008 source, with and without the coordinate cotangent (its
-     atomics add in a run-dependent order: atol 1e-5 of max |grad_src|);
+     (matrix form: per-plane matrices, the MPI read in place) at S=32,
+     384x512 with planes behind the target camera, also against the
+     coordinate form the Pallas kernel computes; the warp's backward at the
+     training path's scale-0 (128, 4, 384, 512) and at a 756x1008 source,
+     with and without the coordinate cotangent (its atomics add in a
+     run-dependent order: atol 1e-5 of max |grad_src|), with the share of
+     its blocks on the shared-memory and the direct path;
   4. drives the serving path at the default configuration's full width
      (ResNet-50, 384x512, S=32, bf16 network) with seeded random weights:
      a RenderEngine (streaming compositor) predicts two images and renders
      1, 5 and 90 poses, a VideoGenerator (dense compositor) renders the
      zoom-in trajectory; the kernels' launch counts must rise by exactly the
-     frames rendered, dense and streaming must agree to 1e-4, and a small
+     frames rendered, dense and streaming must agree to 1e-4, a streaming
+     frame must allocate less than one (S, H, W) fp32 array, and a small
      configuration on the card must agree with the same run on the CPU;
   5. drives the training path at the same full width (B=4, dense
      compositor, stratified disparities, 4-scale loss, Adam) on synthetic
      batches: finite loss and gradient norm, both parameter groups move,
-     the warp and its backward kernel launch 4 times a step; the same steps
-     run twice more with Adam and twice with sgd, to show how far the
-     gradient norm repeats; one train step of a small configuration on the
-     card must agree with the CPU's;
+     the warp and its backward kernel launch 4 times a step; the first
+     step's scale-0 backward operands are captured; the same steps run twice
+     more with Adam and twice with sgd, to show how far the gradient norm
+     repeats; one train step of a small configuration on the card must
+     agree with the CPU's;
   6. times every kernel (CUDA events), its plain version and, for the warp
      and its backward, torch's grid_sample, beside each kernel's memory
-     bound; times predict and render per frame, the frames' copy to host
-     memory on its own, and the train step.
+     bound (the backward also on the captured training operands); times
+     predict and render per frame, the frames' copy to host memory on its
+     own, and the train step; profiles them, with the device events per
+     frame, and the coordinate-form prep the streaming render no longer
+     runs.
 Every result line is JSON and carries the card's name and power limit; the
 last line is {"ok": true, "device": {...}}. Any failure raises and the exit
 code is not 0. Without a CUDA device, or outside a checkout, it exits non-zero
@@ -54,6 +62,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_FLOPS = 67e12  # H100 SXM fp32 rate outside the tensor cores
 TOL = dict(rtol=1e-5, atol=1e-5)
+T_START = time.perf_counter()
 
 
 def card() -> dict:
@@ -66,8 +75,8 @@ def card() -> dict:
 
 
 def emit(info: dict, **fields) -> None:
-    print(json.dumps({**fields, "gpu": info["gpu"], "power_limit": info["power_limit"]}),
-          flush=True)
+    print(json.dumps({**fields, "gpu": info["gpu"], "power_limit": info["power_limit"],
+                      "elapsed_s": time.perf_counter() - T_START}), flush=True)
 
 
 def time_cuda_ms(fn, reps: int = 20, inner: int = 5, warmup: int = 3) -> float:
@@ -157,6 +166,8 @@ def profile_breakdown(fn, frames: int, top: int = 8) -> dict:
         "wall_ms_per_frame": wall_ms / frames,
         "device_ms_per_frame": device_ms / frames,
         "device_busy_share": device_ms / wall_ms,
+        # kernels and copies the card ran, per frame
+        "device_events_per_frame": sum(e.count for e in on_device) / frames,
         "top_kernels": [
             {"name": e.key[:100], "ms_per_frame": device_us(e) / 1e3 / frames,
              "calls_per_frame": e.count / frames}
@@ -185,7 +196,7 @@ def main() -> int:
     from mine_tpu_torch.ops.geometry import inverse_3x3
     from mine_tpu_torch.ops.kernels import build
     from mine_tpu_torch.ops.kernels import warp as kw
-    from mine_tpu_torch.ops.mpi_render import streaming_inputs
+    from mine_tpu_torch.ops.mpi_render import streaming_inputs, streaming_matrices
     from mine_tpu_torch.serving.engine import RenderEngine
     from mine_tpu_torch.training.step import build_model, render_novel_view
 
@@ -225,19 +236,25 @@ def main() -> int:
     k_cam = torch.from_numpy(np.array(
         [[w / 2, 0, w / 2], [0, w / 2, h / 2], [0, 0, 1]], np.float32))[None].to(dev)
     disparity = torch.linspace(1.0, 0.001, s, device=dev)[None]
-    k5_in = streaming_inputs(
-        torch.rand((1, s, h, w, 3), generator=gen, device=dev),
-        torch.rand((1, s, h, w, 1), generator=gen, device=dev) * 4.0,
-        disparity, torch.from_numpy(pose(0.1, -0.05, -1.5))[None].to(dev),
-        inverse_3x3(k_cam), k_cam,
-    )
-    n_behind = int((k5_in[4] < 0).any(dim=(2, 3)).sum())
+    k5_mpi = (torch.rand((1, s, h, w, 3), generator=gen, device=dev),
+              torch.rand((1, s, h, w, 1), generator=gen, device=dev) * 4.0)
+    k5_pose = (disparity, torch.from_numpy(pose(0.1, -0.05, -1.5))[None].to(dev),
+               inverse_3x3(k_cam), k_cam)
+    k5_in = (*k5_mpi, *streaming_matrices(*k5_pose))
+    n_behind = int((kw.composite_operands(*k5_in[2:], h, w)[3] < 0).any(dim=(2, 3)).sum())
     if n_behind == 0:
         raise AssertionError("warp_composite check has no plane behind the camera")
-    k5_err = check_close("warp_composite (1,32,4,384,512)", kw.warp_composite(*k5_in),
-                         kw.warp_composite_plain(*k5_in), **TOL)
+    k5_out = kw.warp_composite(*k5_in)
+    k5_err = check_close("warp_composite (1,32,384,512)", k5_out,
+                         kw.warp_composite_matrix_plain(*k5_in), **TOL)
+    # the coordinate form: the dense path's torch prep, then the function the
+    # Pallas kernel computes
+    k5_coord_err = check_close("warp_composite vs the coordinate form", k5_out,
+                               kw.warp_composite_plain(*streaming_inputs(*k5_mpi, *k5_pose)),
+                               **TOL)
     emit(info, phase="kernel_check", tolerance=TOL, warp_bilinear_dense_err=k1_err,
          warp_bilinear_756x1008_err=k3_err, warp_composite_err=k5_err,
+         warp_composite_vs_coordinate_form_err=k5_coord_err,
          warp_composite_planes_behind_camera=n_behind)
 
     # the warp's backward at the training path's scale-0 shape (B=4 x S=32
@@ -248,17 +265,26 @@ def main() -> int:
         cx2, cy2 = plane_coords(h2, w2, n2, g_test, dev, gen)
         g2 = torch.randn((n2, 4, h2, w2), generator=gen, device=dev)
         k2_cases[label] = (src2, cx2, cy2, g2)
+    def path_share(fn) -> dict:
+        """The backward kernel's blocks on each path during fn()."""
+        before = kw.grad_path_blocks()
+        fn()
+        after = kw.grad_path_blocks()
+        shared, direct = (after[k] - before[k] for k in ("shared", "direct"))
+        return {"shared": shared, "direct": direct, "shared_share": shared / (shared + direct)}
+
     k2_errs = {}
     for label, (src2, cx2, cy2, g2) in k2_cases.items():
         n2, c2, h2, w2 = src2.shape
         for mode, src_arg in (("src_only", None), ("with_coords", src2)):
             got = kw.warp_bilinear_grad(g2, cx2, cy2, h2, w2, src_arg)
+            paths = path_share(lambda: kw.warp_bilinear_grad(g2, cx2, cy2, h2, w2, src_arg))
             again = kw.warp_bilinear_grad(g2, cx2, cy2, h2, w2, src_arg)
             want = kw.warp_bilinear_grad_plain(g2, cx2, cy2, h2, w2, src_arg)
             tol = dict(rtol=1e-5, atol=1e-5 * want[0].abs().max().item())
             row = {"grad_src_err": check_close(f"warp_bilinear_grad {label} {mode} grad_src",
                                                got[0], want[0], **tol),
-                   "grad_src_tolerance": tol,
+                   "grad_src_tolerance": tol, "blocks_by_path": paths,
                    "run_to_run_max_abs": (got[0] - again[0]).abs().max().item()}
             if src_arg is not None:
                 for name, a, b in (("grad_x", got[1], want[1]), ("grad_y", got[2], want[2])):
@@ -339,6 +365,20 @@ def main() -> int:
     for key in ("tgt_imgs_syn", "tgt_disparity_syn", "tgt_mask_syn"):
         agree[key] = check_close(f"dense vs streaming {key}", outs["streaming"][key],
                                  outs["dense"][key], rtol=1e-4, atol=1e-4)
+    # a streaming frame allocates its (1, 7, H, W) accumulators and B*S tiny
+    # matrices: far less than one (S, H, W) fp32 coordinate, dist or z array
+    del outs
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    frame = render_novel_view(cfg.replace(**{"mpi.compositor": "streaming"}), e.mpi_rgb,
+                              e.mpi_sigma, e.disparity, g1, k_inv, e.k)
+    torch.cuda.synchronize()
+    frame_alloc = torch.cuda.max_memory_allocated() - base
+    del frame
+    if frame_alloc >= s * h * w * 4:
+        raise AssertionError(f"a streaming frame allocated {frame_alloc} bytes, as much as "
+                             f"an (S, H, W) fp32 array ({s * h * w * 4})")
 
     # the whole path on the card against the same path on the CPU, small
     small = Config().replace(**{"data.img_h": 128, "data.img_w": 128, "mpi.num_bins_coarse": 4,
@@ -357,7 +397,8 @@ def main() -> int:
             and np.allclose(small_out["cuda"][1], small_out["cpu"][1], rtol=1e-3, atol=1e-5)):
         raise AssertionError(f"small config: card and CPU disagree {cpu_gap}")
     emit(info, phase="agreement", dense_vs_streaming_max_abs=agree,
-         card_vs_cpu_small_max_abs=cpu_gap)
+         card_vs_cpu_small_max_abs=cpu_gap, streaming_frame_peak_alloc_bytes=frame_alloc,
+         one_shw_fp32_array_bytes=s * h * w * 4)
 
     # 5. the training path at full width: Trainer.fit on synthetic batches
     from mine_tpu_torch.data.registry import build_dataset
@@ -420,8 +461,25 @@ def main() -> int:
         return out["loss"], {n: p.grad.detach().clone()
                              for n, p in tr.model.named_parameters() if p.grad is not None}
 
-    first = {"kernel_a": first_step(cfg_b), "kernel_b": first_step(cfg_b)}
-    kernel_grad, before = kw.warp_bilinear_grad, kw.launches["warp_bilinear_grad"]
+    # the first run also keeps the scale-0 render's backward operands (the
+    # cotangent and the sample coordinates of B*S planes at 384x512) for the
+    # backward kernel's timing on the training path's own data
+    kernel_grad, captured = kw.warp_bilinear_grad, {}
+
+    def capture_scale0(g_, cx_, cy_, hh, ww, src_=None):
+        if (hh, ww) == (h, w) and not captured:
+            captured.update(g=g_.clone(), cx=cx_.clone(), cy=cy_.clone())
+        return kernel_grad(g_, cx_, cy_, hh, ww, src_)
+
+    kw.warp_bilinear_grad = capture_scale0
+    try:
+        first = {"kernel_a": first_step(cfg_b)}
+    finally:
+        kw.warp_bilinear_grad = kernel_grad
+    if not captured:
+        raise AssertionError("the first train step ran no scale-0 warp backward")
+    first["kernel_b"] = first_step(cfg_b)
+    before = kw.launches["warp_bilinear_grad"]
     kw.warp_bilinear_grad = kw.warp_bilinear_grad_plain
     try:
         first["plain"] = first_step(cfg_b)
@@ -529,38 +587,58 @@ def main() -> int:
             bound_ms=b_ms, bound_by=b_by, library_max_abs_diff=lib_gap,
         )
         emit(info, phase="timing", kernel="warp_bilinear", case=label, **warp_rows[label])
-    kernels.append(dict(
-        name="warp_bilinear", route="cuda", source="mine_tpu_torch/csrc/warp.cu",
-        replaces="mine_tpu/ops/pallas/warp.py:365",
-        launches=main_launches["warp_bilinear"] + train_launches["warp_bilinear"],
-        launches_by_path={"serve": main_launches["warp_bilinear"],
-                          "train": train_launches["warp_bilinear"]},
-        max_abs_err=k1_err, ms=warp_rows["dense"]["ms"], plain_ms=warp_rows["dense"]["plain_ms"],
-        bound_ms=warp_rows["dense"]["bound_ms"], bound_by=warp_rows["dense"]["bound_by"],
-        library_ms=warp_rows["dense"]["library_ms"],
-    ))
+    k1_launches = dict(launches=main_launches["warp_bilinear"] + train_launches["warp_bilinear"],
+                       launches_by_path={"serve": main_launches["warp_bilinear"],
+                                         "train": train_launches["warp_bilinear"]})
+    for label, replaces, err in (("dense", "mine_tpu/ops/pallas/warp.py:365", k1_err),
+                                 ("756x1008", "mine_tpu/ops/pallas/warp.py:552", k3_err)):
+        row = warp_rows[label]
+        kernels.append(dict(
+            name="warp_bilinear" if label == "dense" else "warp_bilinear (banded size class)",
+            route="cuda", source="mine_tpu_torch/csrc/warp.cu", replaces=replaces,
+            shape=row["shape"], **k1_launches, max_abs_err=err, ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row["library_ms"],
+        ))
 
-    src5, cx5 = k5_in[0], k5_in[1]
-    n5, s5, c5 = src5.shape[:3]
-    out5 = n5 * (c5 + 3) * cx5[0, 0].numel() * 4
-    b_ms, b_by = bound_ms(nbytes(*k5_in) + out5, cx5.numel() * (9 * c5 + 30))
+    # bytes: the MPI read once, the matrices, the (N, 7, H, W) output written
+    # once; operations per plane pixel: the coordinates, xyz and distance
+    # (~40), the 4-channel bilinear sample (36) and the composite (~20)
+    n5, s5 = k5_in[0].shape[:2]
+    plane_pix = n5 * s5 * h * w
+    b_ms, b_by = bound_ms(nbytes(*k5_in) + nbytes(k5_out), plane_pix * 96)
     k5_row = dict(
-        shape=list(src5.shape), ms=time_cuda_ms(lambda: kw.warp_composite(*k5_in)),
-        plain_ms=time_cuda_ms(lambda: kw.warp_composite_plain(*k5_in), reps=5, inner=1),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        shape={"mpi_rgb": list(k5_in[0].shape), "mpi_sigma": list(k5_in[1].shape)},
+        ms=time_cuda_ms(lambda: kw.warp_composite(*k5_in)),
+        plain_ms=time_cuda_ms(lambda: kw.warp_composite_matrix_plain(*k5_in), reps=5, inner=1),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes(*k5_in, k5_out),
     )
     emit(info, phase="timing", kernel="warp_composite", case="streaming", **k5_row)
     kernels.append(dict(
         name="warp_composite", route="cuda", source="mine_tpu_torch/csrc/warp_composite.cu",
-        replaces="mine_tpu/ops/pallas/warp.py:689", launches=main_launches["warp_composite"],
+        replaces="mine_tpu/ops/pallas/warp.py:689", shape=k5_row["shape"],
+        launches=main_launches["warp_composite"],
         launches_by_path={"serve": main_launches["warp_composite"]},
         max_abs_err=k5_err, ms=k5_row["ms"], plain_ms=k5_row["plain_ms"],
         bound_ms=k5_row["bound_ms"], bound_by=k5_row["bound_by"], library_ms=None,
     ))
 
+    # the first train step's own scale-0 operands, checked like the others
+    k2_cases["train_step_captured"] = (k2_cases["train_scale0"][0][:captured["g"].shape[0]],
+                                       captured["cx"], captured["cy"], captured["g"])
+    src2, cx2, cy2, g2 = k2_cases["train_step_captured"]
+    want = kw.warp_bilinear_grad_plain(g2, cx2, cy2, h, w)[0]
+    captured_err = check_close(
+        "warp_bilinear_grad on the train step's operands", kw.warp_bilinear_grad(
+            g2, cx2, cy2, h, w)[0], want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+    del want
+    emit(info, phase="kernel_check", kernel="warp_bilinear_grad", case="train_step_captured",
+         shape=list(g2.shape), grad_src_err=captured_err,
+         blocks_by_path=path_share(lambda: kw.warp_bilinear_grad(g2, cx2, cy2, h, w)))
+
     k2_rows = {}
     for label, mode in (("train_scale0", "src_only"), ("train_scale0", "with_coords"),
-                        ("756x1008", "src_only")):
+                        ("train_step_captured", "src_only"), ("756x1008", "src_only")):
         src2, cx2, cy2, g2 = k2_cases[label]
         n2, c2, h2, w2 = src2.shape
         src_arg = src2 if mode == "with_coords" else None
@@ -584,19 +662,26 @@ def main() -> int:
             library_ms=time_cuda_ms(lambda: torch.autograd.grad(
                 lib_out, lib_inputs, g2, retain_graph=True)),
             bound_ms=b_ms, bound_by=b_by,
+            blocks_by_path=path_share(
+                lambda: kw.warp_bilinear_grad(g2, cx2, cy2, h2, w2, src_arg)),
         )
         k2_rows[label, mode] = row
         del lib_out
         emit(info, phase="timing", kernel="warp_bilinear_grad", case=f"{label}/{mode}", **row)
-    k2_main = k2_rows["train_scale0", "src_only"]
-    kernels.append(dict(
-        name="warp_bilinear_grad", route="cuda", source="mine_tpu_torch/csrc/warp_grad.cu",
-        replaces="mine_tpu/ops/pallas/warp.py:741", launches=train_launches["warp_bilinear_grad"],
-        launches_by_path={"train": train_launches["warp_bilinear_grad"]},
-        max_abs_err=k2_errs["train_scale0/src_only"]["grad_src_err"],
-        ms=k2_main["ms"], plain_ms=k2_main["plain_ms"], bound_ms=k2_main["bound_ms"],
-        bound_by=k2_main["bound_by"], library_ms=k2_main["library_ms"],
-    ))
+    for label, replaces in (("train_scale0", "mine_tpu/ops/pallas/warp.py:741"),
+                            ("756x1008", "mine_tpu/ops/pallas/warp.py:585")):
+        row = k2_rows[label, "src_only"]
+        kernels.append(dict(
+            name="warp_bilinear_grad" if label == "train_scale0"
+            else "warp_bilinear_grad (banded size class)",
+            route="cuda", source="mine_tpu_torch/csrc/warp_grad.cu", replaces=replaces,
+            shape=row["shape"], launches=train_launches["warp_bilinear_grad"],
+            launches_by_path={"train": train_launches["warp_bilinear_grad"]},
+            max_abs_err=k2_errs[f"{label}/src_only"]["grad_src_err"],
+            ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"],
+            blocks_by_path=row["blocks_by_path"],
+        ))
 
     def host_ms(fn, reps: int) -> float:
         times = []
@@ -659,9 +744,17 @@ def main() -> int:
     emit(info, phase="profile", path="train_step", batch_size=batch_size,
          **profile_breakdown(lambda: trainer.step(timed_batches[0]), 1))
 
+    def coordinate_form_prep():
+        """Per pose, the coordinate-form operands (streaming_inputs): the
+        (S, H, W) coordinate, dist and z arrays and the payload re-layout
+        that the streaming render no longer makes."""
+        for g8 in poses8:
+            streaming_inputs(e.mpi_rgb, e.mpi_sigma, e.disparity, g8[None], k_inv, e.k)
+
     for label, fn, frames in (("predict", lambda: engine.predict(images[0]), 1),
                               ("render_streaming", lambda: engine.render(entries[0], zoom[:8]), 8),
-                              ("render_dense", lambda: video.render_poses(zoom[:8]), 8)):
+                              ("render_dense", lambda: video.render_poses(zoom[:8]), 8),
+                              ("coordinate_form_prep", coordinate_form_prep, 8)):
         emit(info, phase="profile", path=label, **profile_breakdown(fn, frames))
 
     print(json.dumps({"kernels": kernels}), flush=True)

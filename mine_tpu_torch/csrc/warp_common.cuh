@@ -15,6 +15,7 @@ namespace mine {
 
 struct BilinearTap {
   float wx, wy;
+  int x0, y0;                          // top-left corner; the others are +1
   int64_t off00, off01, off10, off11;  // offsets into one (H, W) plane
   bool v00, v01, v10, v11;             // corner lies inside the plane
 };
@@ -31,6 +32,8 @@ __device__ __forceinline__ BilinearTap prep_coords(float x, float y, int h, int 
   BilinearTap t;
   t.wx = x - x0f;
   t.wy = y - y0f;
+  t.x0 = x0;
+  t.y0 = y0;
   t.v00 = vy0 && vx0;
   t.v01 = vy0 && vx1;
   t.v10 = vy1 && vx0;

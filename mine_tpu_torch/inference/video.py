@@ -63,9 +63,10 @@ def predict_blended_mpi(cfg: Config, model: torch.nn.Module, img: torch.Tensor,
                         disparity: torch.Tensor, k: torch.Tensor):
     """One network pass + source-RGB blending: plane rgb is replaced by the
     source pixels wherever the source view sees them. Returns (mpi_rgb,
-    mpi_sigma), (B, S, H, W, 3) and (B, S, H, W, 1)."""
+    mpi_sigma), (B, S, H, W, 3) and (B, S, H, W, 1), both contiguous: the
+    streaming compositor's kernel reads them in place for every frame."""
     mpi = predict_mpis(cfg, model, img, disparity)[0]
-    mpi_rgb, mpi_sigma = mpi[..., 0:3], mpi[..., 3:4]
+    mpi_rgb, mpi_sigma = mpi[..., 0:3], mpi[..., 3:4].contiguous()
     _, _, blend_weights, _ = render_src(
         mpi_rgb, mpi_sigma, disparity, inverse_3x3(k),
         use_alpha=cfg.mpi.use_alpha, is_bg_depth_inf=cfg.mpi.is_bg_depth_inf,

@@ -8,15 +8,22 @@ mine_tpu/ops/grid_sample.py. Three kernels:
     channels-major. Replaces warp_bilinear_chw and its banded twin
     warp_bilinear_chw_banded: device memory has no VMEM ceiling, so one
     kernel covers both source sizes.
-  * `warp_bilinear_grad` (csrc/warp_grad.cu): its backward, the atomicAdd
-    scatter of the source cotangent with the coordinate cotangent fused in.
-    Replaces warp_bilinear_grad_chw and warp_bilinear_grad_chw_banded, plus
-    the save_corners forward pass and the jnp coordinate formula of
-    grid_sample.py::_pallas_bwd.
+  * `warp_bilinear_grad` (csrc/warp_grad.cu): its backward, the scatter of
+    the source cotangent through a per-block source tile in shared memory
+    (global atomics where a block's footprint does not fit), with the
+    coordinate cotangent fused in. Replaces warp_bilinear_grad_chw and
+    warp_bilinear_grad_chw_banded, plus the save_corners forward pass and
+    the jnp coordinate formula of grid_sample.py::_pallas_bwd.
+    `grad_path_blocks` reads how many blocks took each path.
   * `warp_composite` (csrc/warp_composite.cu): the fused per-plane warp and
-    front-to-back over-composite of the streaming compositor. Replaces
-    warp_composite_chw. Forward-only: a call that would need a gradient
-    raises instead of returning a detached result.
+    front-to-back over-composite of the streaming compositor, which computes
+    each plane's sample coordinates, target-frame z and distances from
+    per-plane 3x3 matrices and reads the MPI in place. Replaces
+    warp_composite_chw and the coordinate prep in front of it. Forward-only:
+    a call that would need a gradient raises instead of returning a detached
+    result. Its plain version is `warp_composite_matrix_plain`: the
+    coordinates in torch (`composite_operands`), then `warp_composite_plain`,
+    the coordinate form the Pallas kernel computes.
 
 `warp_bilinear` is differentiable: it runs through the autograd Function
 `WarpBilinear`, whose backward is `warp_bilinear_grad`. Each wrapper runs
@@ -32,22 +39,39 @@ import ctypes
 import torch
 from torch.autograd.function import once_differentiable
 
+from mine_tpu_torch.ops.geometry import apply_3x3, homogeneous_pixel_grid
 from mine_tpu_torch.ops.kernels import build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "warp": {"mine_warp_bilinear_f32": [_P] * 4 + [_I] * 6 + [_P]},
-    "warp_grad": {"mine_warp_bilinear_grad_f32": [_P] * 7 + [_I] * 6 + [_P]},
-    "warp_composite": {"mine_warp_composite_f32": [_P] * 6 + [_I] * 7 + [_P]},
+    "warp_grad": {"mine_warp_bilinear_grad_f32": [_P] * 7 + [_I] * 6 + [_P, _P]},
+    "warp_composite": {"mine_warp_composite_f32": [_P] * 6 + [_I] * 4 + [_P]},
 }
-COMPOSITE_CHANNELS = 4  # rgb + sigma; warp_composite.cu is built for this C alone
+BG_DIST = 1.0e3  # pseudo-distance behind the farthest plane (kBgDist in the kernel)
 
 launches = {"warp_bilinear": 0, "warp_bilinear_grad": 0, "warp_composite": 0}
+# per device: blocks of the backward kernel on its [shared, direct] path
+_grad_paths: dict[torch.device, torch.Tensor] = {}
 
 
 def reset_launches() -> None:
+    """Zero the launch counts and the backward kernel's path counts."""
     for name in launches:
         launches[name] = 0
+    for counts in _grad_paths.values():
+        counts.zero_()
+
+
+def grad_path_blocks() -> dict[str, int]:
+    """Blocks of the backward kernel since the last reset_launches() that
+    scattered through their shared-memory source tile ("shared") and that
+    added straight into device memory ("direct"). Waits for the card."""
+    shared = direct = 0
+    for counts in _grad_paths.values():
+        a, b = counts.tolist()
+        shared, direct = shared + a, direct + b
+    return {"shared": shared, "direct": direct}
 
 
 # -- plain versions ------------------------------------------------------------
@@ -161,6 +185,43 @@ def warp_composite_plain(src: torch.Tensor, coords_x: torch.Tensor,
     )
 
 
+def composite_operands(h_src_tgt: torch.Tensor, xyz_m: torch.Tensor,
+                       xyz_t: torch.Tensor, h: int, w: int):
+    """The per-plane coordinates that warp_composite's kernel computes, in
+    torch and in the kernel's order of operations (that of the torch prep,
+    mpi_render._plane_coords): returns coords_x, coords_y, dist and
+    target-frame z, each (N, S, h, w), for an (h, w) target grid.
+
+    h_src_tgt (N, S, 3, 3) maps target pixels [x, y, 1] to homogeneous
+    source points, |z| < 1e-8 pushed to +-1e-8 before the divide; the plane's
+    target-frame point is xyz_m (N, S, 3, 3) [x, y, 1] + xyz_t (N, 3) at the
+    clamped sample; dist is the distance to the next plane's point, BG_DIST
+    for the last plane."""
+    n, s = h_src_tgt.shape[:2]
+    grid = homogeneous_pixel_grid(h, w, h_src_tgt.device)
+    homo = apply_3x3(h_src_tgt.reshape(n * s, 3, 3), grid[..., 0], grid[..., 1])
+    hz = homo[..., 2]
+    hz = torch.where(hz.abs() < 1.0e-8, torch.where(hz < 0, -1.0e-8, 1.0e-8), hz)
+    x, y = homo[..., 0] / hz, homo[..., 1] / hz
+    xyz = apply_3x3(xyz_m.reshape(n * s, 3, 3), x.clamp(0.0, w - 1.0), y.clamp(0.0, h - 1.0))
+    xyz = (xyz + xyz_t.repeat_interleave(s, dim=0)[:, None, None]).reshape(n, s, h, w, 3)
+    d = xyz[:, 1:] - xyz[:, :-1]
+    dist = torch.sqrt(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2])
+    dist = torch.cat([dist, torch.full_like(xyz[:, -1:, ..., 2], BG_DIST)], dim=1)
+    return x.reshape(n, s, h, w), y.reshape(n, s, h, w), dist, xyz[..., 2]
+
+
+def warp_composite_matrix_plain(mpi_rgb: torch.Tensor, mpi_sigma: torch.Tensor,
+                                h_src_tgt: torch.Tensor, xyz_m: torch.Tensor,
+                                xyz_t: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of warp_composite (the matrix form): the
+    coordinates by composite_operands, then warp_composite_plain on the
+    channel-major payload. Same arguments and result as warp_composite."""
+    h, w = mpi_rgb.shape[2:4]
+    payload = torch.cat([mpi_rgb, mpi_sigma], dim=-1).permute(0, 1, 4, 2, 3)
+    return warp_composite_plain(payload, *composite_operands(h_src_tgt, xyz_m, xyz_t, h, w))
+
+
 # -- wrappers ------------------------------------------------------------------
 
 
@@ -252,6 +313,9 @@ def warp_bilinear_grad(g: torch.Tensor, coords_x: torch.Tensor,
         grad_y = torch.zeros((n, ho, wo), dtype=torch.float32, device=g.device)
     if g.numel() == 0 or grad_src.numel() == 0:
         return grad_src, grad_x, grad_y
+    paths = _grad_paths.get(g.device)
+    if paths is None:
+        paths = _grad_paths[g.device] = torch.zeros(2, dtype=torch.int64, device=g.device)
     lib = build.load("warp_grad", _SIGNATURES["warp_grad"])
     with torch.cuda.device(g.device):
         code = lib.mine_warp_bilinear_grad_f32(
@@ -259,7 +323,7 @@ def warp_bilinear_grad(g: torch.Tensor, coords_x: torch.Tensor,
             None if src is None else src.data_ptr(), grad_src.data_ptr(),
             None if grad_x is None else grad_x.data_ptr(),
             None if grad_y is None else grad_y.data_ptr(),
-            n, c, h, w, ho, wo, torch.cuda.current_stream().cuda_stream,
+            n, c, h, w, ho, wo, paths.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     build.check(lib, code, "warp_bilinear_grad")
     launches["warp_bilinear_grad"] += 1
@@ -291,50 +355,50 @@ class WarpBilinear(torch.autograd.Function):
                 grad_y if ctx.needs_input_grad[2] else None)
 
 
-def warp_composite(src: torch.Tensor, coords_x: torch.Tensor,
-                   coords_y: torch.Tensor, dist: torch.Tensor,
-                   z: torch.Tensor) -> torch.Tensor:
-    """Fused warp + over-composite of an S-plane sweep.
+def warp_composite(mpi_rgb: torch.Tensor, mpi_sigma: torch.Tensor,
+                   h_src_tgt: torch.Tensor, xyz_m: torch.Tensor,
+                   xyz_t: torch.Tensor) -> torch.Tensor:
+    """Fused warp + over-composite of an S-plane sweep into N target views.
 
-    src: (N, S, 4, H, W) per-plane payload, rgb first, sigma LAST.
-    coords_x/coords_y/dist/z: (N, S, Ho, Wo) sample coords, inter-plane
-    distances (background pseudo-distance in the last plane's slot) and
-    target-frame z. Returns (N, 7, Ho, Wo): 3 rgb-weighted sums, z sum,
-    weight sum, in-FoV plane count, final transmittance. CUDA tensors launch
-    csrc/warp_composite.cu; CPU tensors take warp_composite_plain.
+    mpi_rgb (N, S, H, W, 3) and mpi_sigma (N, S, H, W, 1): the MPI as the
+    network gives it, read in place (on CUDA both must be contiguous fp32;
+    nothing copies them). h_src_tgt (N, S, 3, 3): each plane's target pixel
+    -> source pixel homography; xyz_m (N, S, 3, 3) and xyz_t (N, 3): the
+    plane's target-frame point xyz_m [x, y, 1] + xyz_t at the clamped source
+    sample (x, y) (see composite_operands). Returns (N, 7, H, W): 3
+    rgb-weighted sums, z sum, weight sum, in-FoV plane count, final
+    transmittance. CUDA tensors launch csrc/warp_composite.cu; CPU tensors
+    take warp_composite_matrix_plain.
     """
-    plane_shape = coords_x.shape
-    if src.dim() != 5 or len(plane_shape) != 4 or plane_shape[:2] != src.shape[:2] \
-            or any(t.shape != plane_shape for t in (coords_y, dist, z)):
+    n, s = mpi_rgb.shape[:2] if mpi_rgb.dim() == 5 else (None, None)
+    if mpi_rgb.dim() != 5 or mpi_rgb.shape[-1] != 3 \
+            or mpi_sigma.shape != mpi_rgb.shape[:-1] + (1,) \
+            or h_src_tgt.shape != (n, s, 3, 3) or xyz_m.shape != (n, s, 3, 3) \
+            or xyz_t.shape != (n, 3):
         raise ValueError(
-            f"warp_composite: src (N,S,C,H,W) and coords/dist/z (N,S,Ho,Wo), got "
-            f"{tuple(src.shape)} and "
-            f"{[tuple(t.shape) for t in (coords_x, coords_y, dist, z)]}"
+            f"warp_composite: mpi_rgb (N,S,H,W,3), mpi_sigma (N,S,H,W,1), "
+            f"h_src_tgt and xyz_m (N,S,3,3), xyz_t (N,3), got "
+            f"{[tuple(t.shape) for t in (mpi_rgb, mpi_sigma, h_src_tgt, xyz_m, xyz_t)]}"
         )
-    if src.shape[2] != COMPOSITE_CHANNELS:
-        raise ValueError(
-            f"warp_composite: C={src.shape[2]} outside the one channel count it "
-            f"takes, {COMPOSITE_CHANNELS} (rgb + sigma)"
-        )
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (src, coords_x, coords_y, dist, z)):
+    operands = (mpi_rgb, mpi_sigma, h_src_tgt, xyz_m, xyz_t)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
         raise NotImplementedError(
             "warp_composite is forward-only; the streaming compositor's "
             "training backward is ROADMAP queue 1 item 1"
         )
-    if not _route("warp_composite", src, coords_x, coords_y, dist, z):
-        return warp_composite_plain(src, coords_x, coords_y, dist, z)
-    n, s, c, h, w = src.shape
-    ho, wo = plane_shape[2:]
-    out = torch.empty((n, c + 3, ho, wo), dtype=torch.float32, device=src.device)
+    if not _route("warp_composite", *operands):
+        return warp_composite_matrix_plain(*operands)
+    h, w = mpi_rgb.shape[2:4]
+    if h * w >= 2**31:
+        raise ValueError(f"warp_composite: a {h}x{w} plane is past the kernel's 32-bit offsets")
+    out = torch.empty((n, 7, h, w), dtype=torch.float32, device=mpi_rgb.device)
     if out.numel() == 0:
         return out
     lib = build.load("warp_composite", _SIGNATURES["warp_composite"])
-    with torch.cuda.device(src.device):
+    with torch.cuda.device(mpi_rgb.device):
         code = lib.mine_warp_composite_f32(
-            src.data_ptr(), coords_x.data_ptr(), coords_y.data_ptr(),
-            dist.data_ptr(), z.data_ptr(), out.data_ptr(),
-            n, s, c, h, w, ho, wo, torch.cuda.current_stream().cuda_stream,
+            *(t.data_ptr() for t in operands), out.data_ptr(),
+            n, s, h, w, torch.cuda.current_stream().cuda_stream,
         )
     build.check(lib, code, "warp_composite")
     launches["warp_composite"] += 1

@@ -7,9 +7,11 @@ S is axis 1 and every cumulative product runs over it.
 Two target compositors:
   * dense: warp every plane into the target camera (warp kernel, through
     grid_sample_pixel), then composite the warped stack;
-  * streaming: coordinate prep in torch, then the fused warp-composite
-    kernel, which never materialises a warped plane. Forward-only here; its
-    backward (a chunked-scan recompute) comes with the training port.
+  * streaming: B*S tiny per-plane matrices in torch, then the fused
+    warp-composite kernel, which computes each plane's coordinates from them,
+    reads the MPI in place and never materialises a warped plane or an
+    (S, H, W) coordinate array. Forward-only here; its backward (a
+    chunked-scan recompute) is not ported yet.
 """
 
 from __future__ import annotations
@@ -18,12 +20,15 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from mine_tpu_torch.ops.geometry import apply_3x3, homogeneous_pixel_grid, matmul3
+from mine_tpu_torch.ops.geometry import (
+    apply_3x3,
+    homogeneous_pixel_grid,
+    inverse_3x3,
+    matmul3,
+)
 from mine_tpu_torch.ops.grid_sample import grid_sample_pixel
-from mine_tpu_torch.ops.homography import homography_sample_coords
-from mine_tpu_torch.ops.kernels.warp import warp_composite
-
-_BG_DIST = 1.0e3  # pseudo-distance behind the farthest plane
+from mine_tpu_torch.ops.homography import build_plane_homography, homography_sample_coords
+from mine_tpu_torch.ops.kernels.warp import BG_DIST, warp_composite
 
 
 def _shifted_exclusive(x: torch.Tensor, fill: float = 1.0) -> torch.Tensor:
@@ -57,7 +62,7 @@ def plane_volume_rendering(rgb, sigma, xyz, is_bg_depth_inf: bool = False):
     turn sigma into transparency exp(-sigma * dist); transmittance is a
     shifted cumprod over planes. Returns (rgb, depth, transmittance, weights)."""
     dist = torch.linalg.vector_norm(xyz[:, 1:] - xyz[:, :-1], dim=-1, keepdim=True)
-    dist = torch.cat([dist, torch.full_like(dist[:, :1], _BG_DIST)], dim=1)
+    dist = torch.cat([dist, torch.full_like(dist[:, :1], BG_DIST)], dim=1)
     transparency = torch.exp(-sigma * dist)
     alpha = 1.0 - transparency
     transparency_acc = _shifted_exclusive(torch.cumprod(transparency + 1.0e-6, dim=1))
@@ -92,7 +97,7 @@ def _src_dists(mpi_disparity, k_inv, h: int, w: int) -> torch.Tensor:
     depth = 1.0 / mpi_disparity
     ddiff = torch.abs(depth[:, 1:] - depth[:, :-1])
     dist = ddiff[:, :, None, None, None] * ray_norms(k_inv, h, w)[:, None]
-    return torch.cat([dist, torch.full_like(dist[:, :1], _BG_DIST)], dim=1)
+    return torch.cat([dist, torch.full_like(dist[:, :1], BG_DIST)], dim=1)
 
 
 def weighted_sum_src(rgb, mpi_disparity, weights, is_bg_depth_inf: bool = False):
@@ -198,33 +203,56 @@ def _finalize_depth(z_sum, w_sum, is_bg_depth_inf: bool):
 
 def streaming_inputs(mpi_rgb_src, mpi_sigma_src, mpi_disparity_src, g_tgt_src,
                      k_src_inv, k_tgt) -> tuple[torch.Tensor, ...]:
-    """The warp_composite operands of one target render: payload
+    """The coordinate-form operands of one target render, as the Pallas
+    kernel takes them (kernels.warp.warp_composite_plain): payload
     (B, S, 4, H, W) with sigma last, then coords_x, coords_y, dist and
-    target-frame z, each (B, S, H, W) and contiguous."""
+    target-frame z, each (B, S, H, W), from the dense path's coordinate prep.
+    The reference the matrix form (streaming_matrices) is held against."""
     b, s, h, w, _ = mpi_rgb_src.shape
     src_xy, _, xyz = _plane_coords(mpi_disparity_src, g_tgt_src, k_src_inv, k_tgt, h, w)
     xyz = xyz.reshape(b, s, h, w, 3)
     dist = torch.linalg.vector_norm(xyz[:, 1:] - xyz[:, :-1], dim=-1)
-    dist = torch.cat([dist, torch.full_like(dist[:, :1], _BG_DIST)], dim=1)
+    dist = torch.cat([dist, torch.full_like(dist[:, :1], BG_DIST)], dim=1)
     payload = torch.cat([mpi_rgb_src, mpi_sigma_src], dim=-1).permute(0, 1, 4, 2, 3)
     coords = src_xy.reshape(b, s, h, w, 2)
     return (payload.contiguous(), coords[..., 0].contiguous(),
             coords[..., 1].contiguous(), dist.contiguous(), xyz[..., 2].contiguous())
 
 
+def streaming_matrices(mpi_disparity_src, g_tgt_src, k_src_inv, k_tgt):
+    """warp_composite's per-plane matrices for one target render, built as
+    _plane_coords builds them: h_src_tgt (B, S, 3, 3), the inverse plane
+    homographies; xyz_m (B, S, 3, 3) = G[:3, :3] K_src^-1 depth and xyz_t
+    (B, 3) = G[:3, 3], the affine target-frame xyz of _affine_tgt_xyz.
+    Contiguous, at least fp32."""
+    b, s = mpi_disparity_src.shape
+    depth = (1.0 / mpi_disparity_src).reshape(b * s)
+    g_flat = g_tgt_src.repeat_interleave(s, dim=0)
+    k_inv_flat = k_src_inv.repeat_interleave(s, dim=0)
+    h_src_tgt = inverse_3x3(build_plane_homography(
+        g_flat, k_inv_flat, k_tgt.repeat_interleave(s, dim=0), depth))
+    xyz_m = matmul3(g_flat[:, :3, :3], k_inv_flat) * depth[:, None, None]
+
+    def fp32_or_wider(t: torch.Tensor, shape) -> torch.Tensor:
+        return t.to(torch.promote_types(t.dtype, torch.float32)).reshape(shape).contiguous()
+
+    return (fp32_or_wider(h_src_tgt, (b, s, 3, 3)), fp32_or_wider(xyz_m, (b, s, 3, 3)),
+            fp32_or_wider(g_tgt_src[:, :3, 3], (b, 3)))
+
+
 def render_tgt_rgb_depth_streaming(mpi_rgb_src, mpi_sigma_src, mpi_disparity_src,
                                    g_tgt_src, k_src_inv, k_tgt, use_alpha: bool = False,
                                    is_bg_depth_inf: bool = False):
     """Streaming twin of render_tgt_rgb_depth (same signature and outputs):
-    coordinate prep here, then one warp_composite launch for the whole
-    S-plane sweep."""
+    the per-plane matrices here, then one warp_composite launch for the whole
+    S-plane sweep, which reads mpi_rgb_src / mpi_sigma_src in place."""
     if use_alpha:
         raise ValueError(
             "the streaming compositor composites sigma MPIs; alpha MPIs "
             "(mpi.use_alpha) render with mpi.compositor: dense"
         )
-    acc = warp_composite(*streaming_inputs(
-        mpi_rgb_src, mpi_sigma_src, mpi_disparity_src, g_tgt_src, k_src_inv, k_tgt
+    acc = warp_composite(mpi_rgb_src, mpi_sigma_src, *streaming_matrices(
+        mpi_disparity_src, g_tgt_src, k_src_inv, k_tgt
     ))  # (B, 7, H, W): rgb sums (3), z sum, weight sum, valid count, transmittance
     depth = _finalize_depth(acc[:, 3, ..., None], acc[:, 4, ..., None], is_bg_depth_inf)
     return acc[:, 0:3].permute(0, 2, 3, 1), depth, acc[:, 5, ..., None]

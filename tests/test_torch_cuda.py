@@ -8,13 +8,19 @@ Tolerance 1e-5: kernel
 and plain version do the same fp32 arithmetic, the kernel with fused
 multiply-adds. The backward kernel adds into the source cotangent with
 atomics, in an order that changes from run to run: it is held at rtol 1e-5
-and atol 1e-5 of the largest |grad_src|.
+and atol 1e-5 of the largest |grad_src|. The warp-composite kernel computes
+its coordinates with the plain version's rounding, op for op, and combines
+its plane segments in another order than the plain sweep: 1e-5.
 """
+
+import math
 
 import pytest
 import torch
 
+from mine_tpu_torch.ops.geometry import inverse_3x3
 from mine_tpu_torch.ops.kernels import warp as kw
+from mine_tpu_torch.ops.mpi_render import streaming_matrices
 
 pytestmark = pytest.mark.cuda
 
@@ -50,17 +56,51 @@ def test_warp_bilinear_kernel_matches_plain(cuda, n, c, h, w, ho, wo):
                                rtol=1e-5, atol=1e-5)
 
 
-def test_warp_composite_kernel_matches_plain(cuda):
+COMPOSITE_POSES = {  # (tx, ty, tz, yaw) of G_tgt_src
+    "gentle": (0.05, -0.02, 0.01, 0.03),
+    "plane_behind": (0.1, 0.05, -1.3, 0.3),  # the nearest plane behind the camera
+    "edge_on": (0.02, 0.0, 0.1, 0.95),  # the planes' vanishing line in the image
+    "out_of_fov": (6.0, -4.0, 0.2, 0.1),  # most planes land outside the view
+}
+
+
+@pytest.mark.parametrize("s,pose", [(1, "gentle"), (5, "gentle"), (32, "gentle"),
+                                    (5, "plane_behind"), (5, "edge_on"),
+                                    (32, "out_of_fov")])
+def test_warp_composite_kernel_matches_plain(cuda, s, pose):
     gen = torch.Generator(device=cuda).manual_seed(1)
-    n, s, c, h, w, ho, wo = 2, 5, 4, 24, 136, 16, 130
-    src = torch.rand((n, s, c, h, w), generator=gen, device=cuda) * 2
-    cx, cy = (t.reshape(n, s, ho, wo) for t in _coords(n * s, ho, wo, h, w, gen, cuda))
-    dist = torch.rand((n, s, ho, wo), generator=gen, device=cuda) + 0.05
-    z = torch.rand((n, s, ho, wo), generator=gen, device=cuda) * 3.5 - 0.5
-    got = kw.warp_composite(src, cx, cy, dist, z)
+    n, h, w = 2, 40, 72
+    rgb = torch.rand((n, s, h, w, 3), generator=gen, device=cuda)
+    sigma = torch.rand((n, s, h, w, 1), generator=gen, device=cuda) * 3
+    k = torch.tensor([[36.0, 0, w / 2], [0, 36.0, h / 2], [0, 0, 1]], device=cuda).expand(n, 3, 3)
+    tx, ty, tz, yaw = COMPOSITE_POSES[pose]
+    g = torch.eye(4, device=cuda).repeat(n, 1, 1)
+    g[:, 0, 0], g[:, 0, 2], g[:, 2, 0], g[:, 2, 2] = (math.cos(yaw), math.sin(yaw),
+                                                      -math.sin(yaw), math.cos(yaw))
+    g[:, :3, 3] = torch.tensor([tx, ty, tz], device=cuda)
+    g[1, :3, 3] *= 0.5  # the second pose differs from the first
+    disparity = torch.linspace(1.0, 0.1, s, device=cuda)[None].repeat(n, 1)
+    operands = (rgb, sigma, *streaming_matrices(disparity, g, inverse_3x3(k), k))
+    kw.reset_launches()
+    got = kw.warp_composite(*operands)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, kw.warp_composite_plain(src, cx, cy, dist, z),
+    assert kw.launches["warp_composite"] == 1
+    torch.testing.assert_close(got, kw.warp_composite_matrix_plain(*operands),
                                rtol=1e-5, atol=1e-5)
+    z = kw.composite_operands(*operands[2:], h, w)[3]
+    if pose == "plane_behind":  # in the first pose
+        assert bool((z[0, 0] < 0).all())
+    if pose == "edge_on":
+        assert bool((z < 0).any() and (z > 0).any())
+    if pose == "out_of_fov":
+        assert float(got[:, 5].mean()) < 0.5 * s  # fewer than half the planes in view
+
+
+def test_warp_composite_refuses_a_strided_mpi(cuda):
+    mpi = torch.rand((1, 2, 8, 16, 4), device=cuda)
+    mats = torch.eye(3, device=cuda).expand(1, 2, 3, 3).contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        kw.warp_composite(mpi[..., :3], mpi[..., 3:], mats, mats, torch.zeros((1, 3), device=cuda))
 
 
 def test_kernels_refuse_what_they_cannot_take(cuda):
@@ -126,3 +166,62 @@ def test_backward_kernel_refuses_what_it_cannot_take(cuda):
         kw.warp_bilinear_grad(g.bfloat16(), cx, cx, 8, 16)
     with pytest.raises(ValueError, match="several devices"):
         kw.warp_bilinear_grad(g, cx.cpu(), cx, 8, 16)
+
+
+def _grad_case(name, gen, dev):
+    """(n, c, h, w, coords_x, coords_y, expected path) of one backward case;
+    the output is 64x96 and each 64x4 tile of it (the kernel's) is one block."""
+    ho, wo = 64, 96
+    oy, ox = torch.meshgrid(torch.arange(ho, dtype=torch.float32, device=dev),
+                            torch.arange(wo, dtype=torch.float32, device=dev), indexing="ij")
+    jitter = torch.rand((2, ho, wo), generator=gen, device=dev) * 0.2
+    smooth_x, smooth_y = 0.97 * ox + 0.05 * oy + 1.3 + jitter[0], 1.01 * oy - 0.03 * ox + 0.7
+    h, w, path = 64, 96, "shared"
+    if name == "smooth":
+        cx, cy = smooth_x, smooth_y
+    elif name == "minified":  # a tile's footprint is ~128x32 source pixels
+        h, w, path = 256, 384, "direct"
+        cx, cy = 4.0 * ox + 0.5 + jitter[0], 4.0 * oy + 0.5
+    elif name == "all_clamped":  # every tap on one corner pixel
+        cx, cy = -3.0 - jitter[0], h + 2.0 + jitter[1]
+    elif name == "one_pixel_rows":
+        h, cx, cy = 1, smooth_x, smooth_y
+    elif name == "one_pixel_cols":
+        w, cx, cy = 1, smooth_x, smooth_y
+    elif name == "straddles_clamp":  # tiles half clamped to column 0, rows past the bottom
+        cx, cy = ox - 40.0 + jitter[0], oy + 20.0
+    elif name == "scattered_band":  # smooth, but 8 rows of random far-out coords
+        cx, cy, path = smooth_x.clone(), smooth_y.clone(), "both"
+        band = torch.rand((2, 8, wo), generator=gen, device=dev) * 300 - 100
+        cx[24:32], cy[24:32] = band[0], band[1]
+    n, c = 2, 4
+    return n, c, h, w, cx.expand(n, ho, wo).contiguous(), cy.expand(n, ho, wo).contiguous(), path
+
+
+@pytest.mark.parametrize("case", ["smooth", "minified", "all_clamped", "one_pixel_rows",
+                                  "one_pixel_cols", "straddles_clamp", "scattered_band"])
+@pytest.mark.parametrize("with_coords", [False, True], ids=["src-only", "with-coords"])
+def test_warp_bilinear_grad_paths_match_plain(cuda, case, with_coords):
+    """Each case against the plain scatter, and the path its blocks took:
+    the shared-memory tile where a tile's footprint fits, global atomics
+    where it does not, both in one launch for the scattered band."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    n, c, h, w, cx, cy, path = _grad_case(case, gen, cuda)
+    src = torch.rand((n, c, h, w), generator=gen, device=cuda)
+    g = torch.randn((n, c) + tuple(cx.shape[1:]), generator=gen, device=cuda)
+    kw.reset_launches()
+    got = kw.warp_bilinear_grad(g, cx, cy, h, w, src if with_coords else None)
+    blocks = kw.grad_path_blocks()
+    want = kw.warp_bilinear_grad_plain(g, cx, cy, h, w, src if with_coords else None)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5,
+                               atol=1e-5 * float(want[0].abs().max()))
+    if with_coords:
+        for a, b in zip(got[1:], want[1:]):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * float(b.abs().max()))
+    assert blocks["shared"] + blocks["direct"] == n * 16 * 2  # 64x96 in 64x4 tiles
+    if path == "shared":
+        assert blocks["direct"] == 0, blocks
+    elif path == "direct":
+        assert blocks["shared"] == 0, blocks
+    else:
+        assert blocks["shared"] > 0 and blocks["direct"] > 0, blocks

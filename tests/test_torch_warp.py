@@ -111,9 +111,28 @@ def test_warp_composite_matches_pallas(rng):
         jnp.asarray(src), jnp.asarray(cx), jnp.asarray(cy), jnp.asarray(dist),
         jnp.asarray(z), interpret=True,
     ))
-    got = kw.warp_composite(*(torch.from_numpy(a) for a in (src, cx, cy, dist, z)))
+    got = kw.warp_composite_plain(*(torch.from_numpy(a) for a in (src, cx, cy, dist, z)))
     assert got.shape == (n, c + 3, ho, wo)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def _composite_operands(n=1, s=2, h=8, w=16, rgb_channels=3):
+    """warp_composite's operands: an MPI and near-identity plane matrices."""
+    mats = torch.eye(3) + 0.01 * torch.rand(n, s, 3, 3)
+    return (torch.rand(n, s, h, w, rgb_channels), torch.rand(n, s, h, w, 1), mats,
+            mats.clone(), torch.rand(n, 3))
+
+
+@pytest.mark.parametrize("stem", ["warp_composite", "warp_grad"])
+def test_kernel_variants_still_apply_to_the_sources(stem):
+    """Every variant of mine_tpu_torch.kernel_variants changes the shipped
+    source it names (the study cannot silently time the shipped kernel)."""
+    from mine_tpu_torch import kernel_variants as kv
+
+    variants = kv.COMPOSITE_VARIANTS if stem == "warp_composite" else kv.GRAD_VARIANTS
+    texts = [text for _, text in kv.variant_sources(stem, variants)]
+    assert texts[0] == (kw.build.CSRC / f"{stem}.cu").read_text()
+    assert len(set(texts)) == len(texts)
 
 
 def test_cpu_tensors_take_the_plain_version(rng):
@@ -122,7 +141,9 @@ def test_cpu_tensors_take_the_plain_version(rng):
     cx, cy = torch.rand(1, 8, 16) * 16, torch.rand(1, 8, 16) * 8
     torch.testing.assert_close(kw.warp_bilinear(src, cx, cy),
                                kw.warp_bilinear_plain(src, cx, cy), rtol=0, atol=0)
-    kw.warp_composite(src[:, None], cx[:, None], cy[:, None], cx[:, None], cy[:, None])
+    operands = _composite_operands()
+    torch.testing.assert_close(kw.warp_composite(*operands),
+                               kw.warp_composite_matrix_plain(*operands), rtol=0, atol=0)
     src.requires_grad_()
     kw.warp_bilinear(src, cx, cy).sum().backward()
     assert src.grad is not None
@@ -132,11 +153,12 @@ def test_cpu_tensors_take_the_plain_version(rng):
 def test_wrappers_refuse_what_the_kernels_cannot_do():
     src = torch.rand(1, 4, 8, 16)
     cx, cy = torch.rand(1, 8, 16), torch.rand(1, 8, 16)
+    rgb, *rest = _composite_operands()
     with pytest.raises(NotImplementedError, match="forward-only"):
-        kw.warp_composite(src[:, None].requires_grad_(), *(cx[:, None],) * 4)
+        kw.warp_composite(rgb.requires_grad_(), *rest)
     with pytest.raises(ValueError, match="coords"):
         kw.warp_bilinear(torch.rand(1, 4, 8, 16), cx[0], cy[0])
-    with pytest.raises(ValueError, match="outside"):
-        kw.warp_composite(torch.rand(1, 2, 3, 8, 16), *(torch.rand(1, 2, 8, 16),) * 4)
+    with pytest.raises(ValueError, match="mpi_rgb"):
+        kw.warp_composite(*_composite_operands(rgb_channels=4))
     with pytest.raises(ValueError, match="no kernel"):
         kw.warp_bilinear(*(t.to("meta") for t in (torch.rand(1, 4, 8, 16), cx, cy)))
