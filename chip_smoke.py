@@ -8,11 +8,13 @@ From the root of a checkout, on a machine with a CUDA device and nvcc:
   2. builds the CUDA kernels from mine_tpu_torch/csrc/;
   3. holds each kernel against its plain PyTorch version at the main paths'
      shapes (rtol = atol = 1e-5): the warp at the dense compositor's
-     (32, 4, 384, 512) and at a 756x1008 source, the fused warp-composite
+     (32, 4, 384, 512), at a 756x1008 source and at the streaming backward's
+     chunks (16, 4, 384, 512) and (4, 4, 768, 1024), the fused warp-composite
      (matrix form: per-plane matrices, the MPI read in place) at S=32,
      384x512 with planes behind the target camera, also against the
      coordinate form the Pallas kernel computes; the warp's backward at the
-     training path's scale-0 (128, 4, 384, 512) and at a 756x1008 source,
+     training path's scale-0 (128, 4, 384, 512), at a 756x1008 source and
+     at the two streaming chunk shapes,
      with and without the coordinate cotangent (its atomics add in a
      run-dependent order: atol 1e-5 of max |grad_src|), with the share of
      its blocks on the shared-memory and the direct path;
@@ -32,13 +34,23 @@ From the root of a checkout, on a machine with a CUDA device and nvcc:
      more with Adam and twice with sgd, to show how far the gradient norm
      repeats; one train step of a small configuration on the card must
      agree with the CPU's;
-  6. times every kernel (CUDA events), its plain version and, for the warp
+  6. drives the streaming compositor's training path (streaming_phases):
+     the gradient of a streaming render (K5 forward, the chunked scan's warp
+     and its backward) against the dense render's and against the same scan
+     on the plain versions (relative L2 1e-4, max 1e-5 of max |grad|);
+     Trainer.fit with the streaming compositor at full width (B=4) with a
+     checkpoint and an eval, its launches a step asserted, its step time and
+     peak memory beside the dense step's; a new Trainer resuming from the
+     workspace bit-equal; the eval pass with LPIPS (seeded weights) at full
+     width; the 768x1024, S=128, B=1 recipe with remat (llff_highres.yaml),
+     whose scale-0 warps are the size class of the TPU's banded kernels;
+  7. times every kernel (CUDA events), its plain version and, for the warp
      and its backward, torch's grid_sample, beside each kernel's memory
-     bound (the backward also on the captured training operands); times
-     predict and render per frame, the frames' copy to host memory on its
-     own, and the train step; profiles them, with the device events per
-     frame, and the coordinate-form prep the streaming render no longer
-     runs.
+     bound (the backward also on the captured training operands; the
+     warp-composite also at the 768x1024, S=128 size); times predict and
+     render per frame, the frames' copy to host memory on its own, and the
+     train step; profiles them, with the device events per frame, and the
+     coordinate-form prep the streaming render no longer runs.
 Every result line is JSON and carries the card's name and power limit; the
 last line is {"ok": true, "device": {...}}. Any failure raises and the exit
 code is not 0. Without a CUDA device, or outside a checkout, it exits non-zero
@@ -99,6 +111,18 @@ def time_cuda_ms(fn, reps: int = 20, inner: int = 5, warmup: int = 3) -> float:
         windows.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) / inner for s, e in windows)
+
+
+def host_ms(fn, reps: int) -> float:
+    """Median host-clock time of fn, synchronised before and after."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
 
 
 def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
@@ -183,6 +207,331 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor, **tol) -> floa
     return err
 
 
+VMEM_SRC_BUDGET = 8 * 1024 * 1024  # the TPU's banded-kernel threshold (K3/K4 past it)
+# (H, W, S, B) of mine_tpu/configs/llff_highres.yaml
+HIGHRES = (768, 1024, 128, 1)
+
+
+class SizeTally:
+    """Kernel launches of warp_bilinear (K1/K3) and its backward (K2/K4) by
+    the TPU's size class, counted where the package's own launch count rose:
+    a source plane of C*H*W fp32 past 8 MiB is the banded class. Wraps the
+    two functions WarpBilinear calls until `close()`."""
+
+    def __init__(self, kw):
+        self.kw, self.fwd, self.grad = kw, kw._warp_bilinear_forward, kw.warp_bilinear_grad
+        self.counts = {}
+        self.reset()
+
+        def count(name, c, hh, ww, before):
+            if kw.launches[name] > before:
+                cls = "banded" if c * hh * ww * 4 > VMEM_SRC_BUDGET else "resident"
+                self.counts[name][cls] += 1
+
+        def fwd(src, cx, cy):
+            before = kw.launches["warp_bilinear"]
+            out = self.fwd(src, cx, cy)
+            count("warp_bilinear", *src.shape[1:], before)
+            return out
+
+        def grad(g, cx, cy, hh, ww, src=None):
+            before = kw.launches["warp_bilinear_grad"]
+            out = self.grad(g, cx, cy, hh, ww, src)
+            count("warp_bilinear_grad", g.shape[1], hh, ww, before)
+            return out
+
+        kw._warp_bilinear_forward, kw.warp_bilinear_grad = fwd, grad
+
+    def reset(self) -> None:
+        self.counts = {name: {"resident": 0, "banded": 0}
+                       for name in ("warp_bilinear", "warp_bilinear_grad")}
+
+    def read(self) -> dict:
+        return {name: dict(v) for name, v in self.counts.items()}
+
+    def close(self) -> None:
+        self.kw._warp_bilinear_forward, self.kw.warp_bilinear_grad = self.fwd, self.grad
+
+
+def write_seeded_lpips(path: str, seed: int = 0) -> None:
+    """Seeded random LPIPS-VGG weights in the converted layout (conv kernels
+    HWIO, non-negative lin weights (C,)), so that LPIPS runs at full width."""
+    from mine_tpu_torch.losses.lpips import _TAP_CHANNELS, _VGG16_CFG
+
+    rng = np.random.default_rng(seed)
+    arrays, c_in = {}, 3
+    for i, c in enumerate(c for c in _VGG16_CFG if c != "M"):
+        bound = 1.0 / math.sqrt(9 * c_in)
+        arrays[f"conv{i}_w"] = rng.uniform(-bound, bound, (3, 3, c_in, c)).astype(np.float32)
+        arrays[f"conv{i}_b"] = rng.uniform(-0.1, 0.1, c).astype(np.float32)
+        c_in = c
+    for j, c in enumerate(_TAP_CHANNELS):
+        arrays[f"lin{j}_w"] = rng.uniform(0.0, 2.0 / c, c).astype(np.float32)
+    np.savez(path, **arrays)
+
+
+def rel_l2_and_max(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """||got - want|| / ||want|| and max |got - want| / max |want|."""
+    diff = (got - want).double()
+    return ((diff.norm() / want.double().norm()).item(),
+            (diff.abs().max() / want.abs().max()).item())
+
+
+def streaming_phases(info, dev, gen, h, w, s, train_cfg, train_state, batch_size,
+                     dense_trainer, dense_ds) -> dict:
+    """The streaming compositor's training path: its gradient check, Trainer
+    .fit with a checkpoint and an eval, a resume, the eval pass with LPIPS,
+    and the 768x1024 S=128 recipe with remat. Returns the launches of each
+    path (by kernel, K1/K2 split by size class) and the inputs of K5 at the
+    recipe's size, for the timing phase."""
+    import copy
+    import shutil
+
+    from mine_tpu_torch.config import load_config
+    from mine_tpu_torch.data.registry import build_dataset
+    from mine_tpu_torch.inference.video import fov_intrinsics
+    from mine_tpu_torch.losses.lpips import load_lpips_params
+    from mine_tpu_torch.ops import mpi_render as mr
+    from mine_tpu_torch.ops.geometry import inverse_3x3
+    from mine_tpu_torch.ops.kernels import warp as kw
+    from mine_tpu_torch.training import checkpoint as ckpt
+    from mine_tpu_torch.training.loop import Trainer, run_evaluation
+    from mine_tpu_torch.training.step import batch_to_device, loss_fcn, make_disparity_list
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    scratch = os.path.join(root, "build", "chip_smoke")
+    shutil.rmtree(scratch, ignore_errors=True)
+    os.makedirs(scratch)
+    out = {"launches": {}}
+    chunk = train_cfg.mpi.stream_chunk_planes
+    n_chunks = s // chunk
+
+    # the gradient of a streaming render (K5 forward, the chunked scan's K1
+    # and K2 in the backward) against the dense render's (K1, K2) and the
+    # same chunked scan on the plain versions; B=4, S=32, 384x512
+    tol = {"rel_l2": 1e-4, "max_abs_over_max_grad": 1e-5}
+    gb = 4
+    k = torch.from_numpy(fov_intrinsics(h, w))[None].to(dev).expand(gb, 3, 3).contiguous()
+    operands = (torch.rand((gb, s, h, w, 3), generator=gen, device=dev),
+                torch.rand((gb, s, h, w, 1), generator=gen, device=dev) * 4.0)
+    rest = (torch.linspace(1.0, 0.001, s, device=dev)[None].expand(gb, s).contiguous(),
+            torch.from_numpy(pose(0.08, -0.04, 0.15)).to(dev)[None].expand(gb, 4, 4).contiguous(),
+            inverse_3x3(k), k)
+    c_rgb = torch.randn((gb, h, w, 3), generator=gen, device=dev)
+    c_disp = torch.randn((gb, h, w, 1), generator=gen, device=dev)
+
+    def render_grads(render):
+        rgb, sigma = (t.clone().requires_grad_() for t in operands)
+        out_rgb, out_depth, _ = render(rgb, sigma, *rest)
+        (torch.sum(out_rgb * c_rgb) + torch.sum(c_disp / out_depth)).backward()
+        return rgb.grad, sigma.grad
+
+    kw.reset_launches()
+    got = render_grads(mr.render_tgt_rgb_depth_streaming)
+    torch.cuda.synchronize()
+    grad_launches = dict(kw.launches)
+    want_launches = {"warp_composite": 1, "warp_bilinear": 2 * n_chunks - 1,
+                     "warp_bilinear_grad": n_chunks}
+    if grad_launches != want_launches:
+        raise AssertionError(f"streaming render with a gradient launched {grad_launches}, "
+                             f"expected {want_launches}")
+    dense = render_grads(mr.render_tgt_rgb_depth)
+    kernels = kw._warp_bilinear_forward, kw.warp_bilinear_grad
+    kw._warp_bilinear_forward = kw.warp_bilinear_plain
+    kw.warp_bilinear_grad = kw.warp_bilinear_grad_plain
+    before = dict(kw.launches)
+    try:
+        plain = render_grads(mr.render_tgt_rgb_depth_streaming)
+    finally:
+        kw._warp_bilinear_forward, kw.warp_bilinear_grad = kernels
+    if any(kw.launches[n] != before[n] for n in ("warp_bilinear", "warp_bilinear_grad")):
+        raise AssertionError("the plain scan launched a warp kernel")
+    gaps = {}
+    for ref_name, ref in (("dense", dense), ("plain_scan", plain)):
+        for name, a, b in zip(("d_rgb", "d_sigma"), got, ref):
+            rel, mx = rel_l2_and_max(a, b)
+            gaps[f"{name}_vs_{ref_name}"] = {"rel_l2": rel, "max_abs_over_max_grad": mx}
+            if not (math.isfinite(rel) and rel <= tol["rel_l2"]
+                    and mx <= tol["max_abs_over_max_grad"]):
+                raise AssertionError(f"streaming {name} vs {ref_name}: rel L2 {rel}, max {mx}, "
+                                     f"tolerance {tol}")
+    render_rows = {}
+    for label, render in (("streaming", mr.render_tgt_rgb_depth_streaming),
+                          ("dense", mr.render_tgt_rgb_depth)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        render_grads(render)
+        torch.cuda.synchronize()
+        render_rows[label] = {
+            "peak_alloc_gb_above_inputs": (torch.cuda.max_memory_allocated() - base) / 1e9,
+            "ms": time_cuda_ms(lambda r=render: render_grads(r), reps=5, inner=1, warmup=1)}
+    emit(info, phase="streaming_grad_check", shape={"mpi": [gb, s, h, w, 4]}, chunk=chunk,
+         tolerance=tol, gaps=gaps, launches=grad_launches, forward_backward=render_rows)
+    del got, dense, plain, operands
+
+    # Trainer.fit through the streaming compositor at the default width, with
+    # a checkpoint and an eval on the card
+    s_cfg = train_cfg.replace(**{"mpi.compositor": "streaming", "training.checkpoint_interval": 2,
+                                 "training.eval_interval": 2,
+                                 "data.per_gpu_batch_size": batch_size})
+    s_ws = os.path.join(scratch, "train_streaming")
+    s_trainer = Trainer(s_cfg, s_ws, state_dict=train_state)
+    s_train_ds = build_dataset(s_cfg, "train", batch_size)
+    s_val_ds = build_dataset(s_cfg, "val", batch_size)
+    steps = 4
+    tally = SizeTally(kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kw.reset_launches()
+    logged = s_trainer.fit(s_train_ds, s_val_ds, max_steps=steps)
+    torch.cuda.synchronize()
+    fit_launches, fit_sizes = dict(kw.launches), tally.read()
+    fit_peak = torch.cuda.max_memory_allocated() / 1e9
+    n_evals, saved = len(s_trainer.evals), ckpt.all_steps(s_ws)
+    per_step = {"warp_composite": 4, "warp_bilinear": 4 * (2 * n_chunks - 1),
+                "warp_bilinear_grad": 4 * n_chunks}
+    expected = {name: n * steps for name, n in per_step.items()}
+    expected["warp_composite"] += 4 * len(s_val_ds) * n_evals  # eval renders: K5 alone
+    if fit_launches != expected:
+        raise AssertionError(f"train_streaming launched {fit_launches}, expected {expected}")
+    if not (saved and n_evals and math.isfinite(logged["loss"])
+            and math.isfinite(logged["grad_norm"])):
+        raise AssertionError(f"train_streaming: checkpoints {saved}, evals {n_evals}, {logged}")
+    # what the last checkpoint holds, and an eval-mode loss on a fixed batch
+    # with fixed disparities, for the resume below
+    saved_state = copy.deepcopy(s_trainer.state())
+    fixed = batch_to_device(next(iter(s_val_ds.epoch(0))), dev)
+    fixed_disp = make_disparity_list(s_cfg.replace(**{"mpi.fix_disparity": True}),
+                                     batch_size, dev)
+
+    def eval_loss(tr):
+        tr.model.eval()
+        with torch.no_grad():
+            total = loss_fcn(s_cfg, tr.model, fixed, disparity=fixed_disp)[0]
+        tr.model.train()
+        return total
+
+    loss_before = eval_loss(s_trainer)
+    # step time and peak memory, streaming and dense alternated on the same batches
+    timed = list(itertools.islice(s_train_ds.epoch(2), 6))
+    for batch in timed[:1]:
+        s_trainer.step(batch)
+        dense_trainer.step(batch)
+    step_ms, peak_gb = {"streaming": [], "dense": []}, {}
+    for i, batch in enumerate(timed[1:]):
+        for label in (("streaming", "dense") if i % 2 == 0 else ("dense", "streaming")):
+            tr = s_trainer if label == "streaming" else dense_trainer
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            step_ms[label].append(host_ms(lambda tr=tr, b=batch: tr.step(b), reps=1))
+            peak_gb[label] = max(peak_gb.get(label, 0.0), torch.cuda.max_memory_allocated() / 1e9)
+    emit(info, phase="train_streaming",
+         config="default (resnet50, 384x512, S=32, bf16, streaming, chunk 4, stratified)",
+         batch_size=batch_size, steps=steps, loss=logged["loss"], grad_norm=logged["grad_norm"],
+         checkpoints=saved, evals=[st for st, _ in s_trainer.evals],
+         eval_psnr=s_trainer.evals[-1][1]["psnr_tgt"], launches=fit_launches,
+         launches_by_size_class=fit_sizes, launches_per_step=per_step,
+         peak_allocated_gb_fit=fit_peak,
+         train_step_ms={k: statistics.median(v) for k, v in step_ms.items()},
+         train_step_ms_runs=step_ms, peak_allocated_gb_step=peak_gb,
+         images_per_s={k: batch_size / (statistics.median(v) / 1e3) for k, v in step_ms.items()})
+    emit(info, phase="profile", path="train_step_streaming", batch_size=batch_size,
+         **profile_breakdown(lambda: s_trainer.step(timed[0]), 1))
+    out["launches"]["train_streaming"] = {"kernels": fit_launches, "sizes": fit_sizes}
+
+    # a new Trainer on the same workspace resumes at the saved step, bit-equal
+    r_trainer = Trainer(s_cfg, s_ws)
+    r_trainer.fit(s_train_ds, max_steps=saved[-1])
+    a, b = saved_state, r_trainer.state()
+    same = {
+        "global_step": a["global_step"] == b["global_step"] == saved[-1] == steps,
+        "model_and_bn_buffers": all(torch.equal(a["model"][n], b["model"][n]) for n in a["model"]),
+        "optimizer": all(torch.equal(x[n], y[n]) for x, y in zip(
+            a["optimizer"]["state"].values(), b["optimizer"]["state"].values()) for n in x),
+        "scheduler": a["scheduler"] == b["scheduler"],
+        "generators": all(torch.equal(a["generators"][n], b["generators"][n])
+                          for n in a["generators"]),
+    }
+    loss_after = eval_loss(r_trainer)
+    same["eval_loss"] = bool(torch.equal(loss_before, loss_after))
+    if not all(same.values()):
+        raise AssertionError(f"train_resume is not bit-equal: {same}")
+    emit(info, phase="train_resume", resumed_at=r_trainer.global_step, bit_equal=same,
+         eval_loss=loss_after.item())
+    del r_trainer, saved_state
+
+    # the eval pass over the synthetic val split, LPIPS at full width
+    lpips_path = os.path.join(scratch, "lpips_seeded.npz")
+    write_seeded_lpips(lpips_path)
+    e_cfg = s_cfg.replace(**{"training.lpips_weights_path": lpips_path})
+    lpips_params = load_lpips_params(lpips_path, dev)
+    kw.reset_launches()
+    t0 = time.perf_counter()
+    result = run_evaluation(e_cfg, s_trainer.model, s_val_ds, dev, lpips_params,
+                            s_trainer.global_step)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    eval_launches = dict(kw.launches)
+    s_trainer.model.train()
+    want = {"warp_composite": 4 * len(s_val_ds), "warp_bilinear": 0, "warp_bilinear_grad": 0}
+    if eval_launches != want or result["eval_examples"] != s_val_ds.num_eval_examples \
+            or not result["lpips_tgt"] > 0 or not all(map(math.isfinite, result.values())):
+        raise AssertionError(f"eval_path: launches {eval_launches} (want {want}), {result}")
+    emit(info, phase="eval_path", metrics=result, eval_examples=result["eval_examples"],
+         seconds=eval_s, launches=eval_launches)
+    out["launches"]["eval"] = {"kernels": eval_launches}
+    del s_trainer
+    torch.cuda.empty_cache()
+
+    # the 768x1024, S=128, B=1 recipe with remat (mine_tpu/configs/llff_highres.yaml)
+    hr_cfg = load_config(os.path.join(root, "mine_tpu", "configs", "llff_highres.yaml"),
+                         overrides={"data.name": "synthetic", "mpi.compositor": "streaming"})
+    hh, hw, hs, _ = HIGHRES
+    if (hr_cfg.data.img_h, hr_cfg.data.img_w, hs, hr_cfg.data.per_gpu_batch_size) \
+            != HIGHRES or not hr_cfg.model.remat_decoder:
+        raise AssertionError(f"llff_highres.yaml is not the {HIGHRES} (H, W, S, B) remat recipe")
+    hr_trainer = Trainer(hr_cfg)
+    hr_ds = build_dataset(hr_cfg, "train", 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hr_trainer.fit(hr_ds, max_steps=1)  # warm-up
+    kw.reset_launches()
+    tally.reset()
+    hr_ms = [host_ms(lambda b=b: hr_trainer.step(b), reps=1)
+             for b in itertools.islice(hr_ds.epoch(1), 1, 3)]
+    torch.cuda.synchronize()
+    hr_launches, hr_sizes = dict(kw.launches), tally.read()
+    hr_peak = torch.cuda.max_memory_allocated() / 1e9
+    hr_chunks = hs // hr_cfg.mpi.stream_chunk_planes
+    hr_per_step = {"warp_composite": 4, "warp_bilinear": 4 * (2 * hr_chunks - 1),
+                   "warp_bilinear_grad": 4 * hr_chunks}
+    if hr_launches != {n: 2 * v for n, v in hr_per_step.items()}:
+        raise AssertionError(f"train_highres launched {hr_launches} in 2 steps, "
+                             f"expected {hr_per_step} a step")
+    if hr_sizes["warp_bilinear"]["banded"] != 2 * (2 * hr_chunks - 1) \
+            or hr_sizes["warp_bilinear_grad"]["banded"] != 2 * hr_chunks:
+        raise AssertionError(f"train_highres: scale 0 is not the banded size class {hr_sizes}")
+    emit(info, phase="train_highres",
+         config="llff_highres.yaml (resnet50, 768x1024, S=128, B=1, bf16, remat) + synthetic, "
+                "streaming", train_step_ms=statistics.median(hr_ms), train_step_ms_runs=hr_ms,
+         peak_allocated_gb=hr_peak, launches=hr_launches, launches_by_size_class=hr_sizes,
+         launches_per_step=hr_per_step)
+    out["launches"]["train_highres"] = {"kernels": hr_launches, "sizes": hr_sizes}
+    del hr_trainer
+    tally.close()
+    torch.cuda.empty_cache()
+
+    # K5 at the recipe's size, for the timing phase
+    kh = torch.from_numpy(fov_intrinsics(hh, hw))[None].to(dev)
+    hr_mpi = (torch.rand((1, hs, hh, hw, 3), generator=gen, device=dev),
+              torch.rand((1, hs, hh, hw, 1), generator=gen, device=dev) * 4.0)
+    out["k5_highres"] = (*hr_mpi, *mr.streaming_matrices(
+        torch.linspace(1.0, 0.001, hs, device=dev)[None],
+        torch.from_numpy(pose(0.08, -0.04, 0.15))[None].to(dev), inverse_3x3(kh), kh))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a "
@@ -231,6 +580,18 @@ def main() -> int:
     k3_cx, k3_cy = plane_coords(hb, wb, 1, g_test, dev, gen)
     k3_err = check_close("warp_bilinear (1,4,756,1008)", kw.warp_bilinear(k3_src, k3_cx, k3_cy),
                          kw.warp_bilinear_plain(k3_src, k3_cx, k3_cy), **TOL)
+    # the shapes the streaming backward gives the warp: a chunk of B=4 x 4
+    # planes at 384x512, and of B=1 x 4 planes at the 768x1024 recipe's scale
+    # 0 (the banded size class)
+    chunk_cases = {}
+    for label, (nc, hc, wc) in {"stream_chunk": (16, h, w),
+                                "highres_chunk": (4, 768, 1024)}.items():
+        src_c = torch.rand((nc, 4, hc, wc), generator=gen, device=dev)
+        cx_c, cy_c = plane_coords(hc, wc, nc, g_test, dev, gen)
+        err = check_close(f"warp_bilinear {tuple(src_c.shape)}",
+                          kw.warp_bilinear(src_c, cx_c, cy_c),
+                          kw.warp_bilinear_plain(src_c, cx_c, cy_c), **TOL)
+        chunk_cases[label] = (src_c, cx_c, cy_c, err)
     # a pose 1.5 units forward puts the planes nearer than that behind the
     # target camera (z < 0): their sigma must be masked
     k_cam = torch.from_numpy(np.array(
@@ -253,14 +614,18 @@ def main() -> int:
                                kw.warp_composite_plain(*streaming_inputs(*k5_mpi, *k5_pose)),
                                **TOL)
     emit(info, phase="kernel_check", tolerance=TOL, warp_bilinear_dense_err=k1_err,
-         warp_bilinear_756x1008_err=k3_err, warp_composite_err=k5_err,
+         warp_bilinear_756x1008_err=k3_err,
+         warp_bilinear_chunk_errs={k: v[3] for k, v in chunk_cases.items()},
+         warp_composite_err=k5_err,
          warp_composite_vs_coordinate_form_err=k5_coord_err,
          warp_composite_planes_behind_camera=n_behind)
 
     # the warp's backward at the training path's scale-0 shape (B=4 x S=32
     # planes) and at the size class of the TPU's banded kernel, both modes
     k2_cases = {}
-    for label, (n2, h2, w2) in {"train_scale0": (128, h, w), "756x1008": (1, hb, wb)}.items():
+    for label, (n2, h2, w2) in {"train_scale0": (128, h, w), "756x1008": (1, hb, wb),
+                                "stream_chunk": (16, h, w),
+                                "highres_chunk": (4, 768, 1024)}.items():
         src2 = torch.rand((n2, 4, h2, w2), generator=gen, device=dev)
         cx2, cy2 = plane_coords(h2, w2, n2, g_test, dev, gen)
         g2 = torch.randn((n2, 4, h2, w2), generator=gen, device=dev)
@@ -559,7 +924,11 @@ def main() -> int:
          loss={"cuda": step_out["cuda"][0], "cpu": step_out["cpu"][0], "rel": loss_gap},
          grad_norms={"cuda": step_out["cuda"][1], "cpu": step_out["cpu"][1], "rel": norm_gap})
 
-    # 6. timings
+    # 6. the streaming compositor's training path
+    streaming = streaming_phases(info, dev, gen, h, w, s, train_cfg, train_state, batch_size,
+                                 trainer, train_ds)
+
+    # 7. timings
     def grid_of(cx, cy, hh, ww):
         return torch.stack([(cx + 0.5) / (0.5 * ww) - 1.0, (cy + 0.5) / (0.5 * hh) - 1.0], -1)
 
@@ -574,6 +943,8 @@ def main() -> int:
     for label, (src, cx, cy, grid) in {
         "dense": (k1_src, k1_cx, k1_cy, k1_grid),
         "756x1008": (k3_src, k3_cx, k3_cy, k3_grid),
+        **{label: (src_c, cx_c, cy_c, grid_of(cx_c, cy_c, *src_c.shape[2:]))
+           for label, (src_c, cx_c, cy_c, _) in chunk_cases.items()},
     }.items():
         n, c = src.shape[:2]
         n_pix = cx.numel()
@@ -587,16 +958,32 @@ def main() -> int:
             bound_ms=b_ms, bound_by=b_by, library_max_abs_diff=lib_gap,
         )
         emit(info, phase="timing", kernel="warp_bilinear", case=label, **warp_rows[label])
-    k1_launches = dict(launches=main_launches["warp_bilinear"] + train_launches["warp_bilinear"],
-                       launches_by_path={"serve": main_launches["warp_bilinear"],
-                                         "train": train_launches["warp_bilinear"]})
+    paths = streaming["launches"]
+
+    def launches_of(name: str, size_class: str) -> dict:
+        """The launches of `name` at one TPU size class on each main path: the
+        serving and dense-training paths run 384x512 sources only."""
+        by_path = {}
+        if size_class == "resident" or name == "warp_composite":
+            by_path["serve"] = main_launches[name]
+            by_path["train_dense"] = train_launches[name]
+        for path, counts in paths.items():
+            by_path[path] = (counts["kernels"][name] if name == "warp_composite"
+                             else counts["sizes"][name][size_class] if "sizes" in counts
+                             else counts["kernels"][name])
+        return {"launches": sum(by_path.values()), "launches_by_path": by_path}
+
+    # K3's row is timed at the shape its main path (the 768x1024 recipe) gives it
     for label, replaces, err in (("dense", "mine_tpu/ops/pallas/warp.py:365", k1_err),
-                                 ("756x1008", "mine_tpu/ops/pallas/warp.py:552", k3_err)):
+                                 ("highres_chunk", "mine_tpu/ops/pallas/warp.py:552",
+                                  chunk_cases["highres_chunk"][3])):
         row = warp_rows[label]
         kernels.append(dict(
             name="warp_bilinear" if label == "dense" else "warp_bilinear (banded size class)",
             route="cuda", source="mine_tpu_torch/csrc/warp.cu", replaces=replaces,
-            shape=row["shape"], **k1_launches, max_abs_err=err, ms=row["ms"],
+            shape=row["shape"],
+            **launches_of("warp_bilinear", "resident" if label == "dense" else "banded"),
+            max_abs_err=err, ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"],
         ))
@@ -617,11 +1004,35 @@ def main() -> int:
     kernels.append(dict(
         name="warp_composite", route="cuda", source="mine_tpu_torch/csrc/warp_composite.cu",
         replaces="mine_tpu/ops/pallas/warp.py:689", shape=k5_row["shape"],
-        launches=main_launches["warp_composite"],
-        launches_by_path={"serve": main_launches["warp_composite"]},
+        **launches_of("warp_composite", "all"),
         max_abs_err=k5_err, ms=k5_row["ms"], plain_ms=k5_row["plain_ms"],
         bound_ms=k5_row["bound_ms"], bound_by=k5_row["bound_by"], library_ms=None,
     ))
+    # K5 at the 768x1024, S=128 recipe's size, held against its plain version
+    k5h = streaming["k5_highres"]
+    k5h_out = kw.warp_composite(*k5h)
+    k5h_err = check_close(f"warp_composite {tuple(k5h[0].shape)}", k5h_out,
+                          kw.warp_composite_matrix_plain(*k5h), **TOL)
+    b_ms, b_by = bound_ms(nbytes(*k5h) + nbytes(k5h_out), k5h[0][..., 0].numel() * 96)
+    k5h_row = dict(
+        shape={"mpi_rgb": list(k5h[0].shape), "mpi_sigma": list(k5h[1].shape)},
+        ms=time_cuda_ms(lambda: kw.warp_composite(*k5h)),
+        plain_ms=time_cuda_ms(lambda: kw.warp_composite_matrix_plain(*k5h), reps=3, inner=1,
+                              warmup=1),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes(*k5h, k5h_out),
+        max_abs_err=k5h_err,
+    )
+    emit(info, phase="timing", kernel="warp_composite", case="highres", **k5h_row)
+    kernels.append(dict(
+        name="warp_composite (S=128, 768x1024)", route="cuda",
+        source="mine_tpu_torch/csrc/warp_composite.cu",
+        replaces="mine_tpu/ops/pallas/warp.py:689", shape=k5h_row["shape"],
+        launches=paths["train_highres"]["kernels"]["warp_composite"],
+        launches_by_path={"train_highres": paths["train_highres"]["kernels"]["warp_composite"]},
+        max_abs_err=k5h_err, ms=k5h_row["ms"], plain_ms=k5h_row["plain_ms"],
+        bound_ms=k5h_row["bound_ms"], bound_by=k5h_row["bound_by"], library_ms=None,
+    ))
+    del k5h, k5h_out
 
     # the first train step's own scale-0 operands, checked like the others
     k2_cases["train_step_captured"] = (k2_cases["train_scale0"][0][:captured["g"].shape[0]],
@@ -638,7 +1049,8 @@ def main() -> int:
 
     k2_rows = {}
     for label, mode in (("train_scale0", "src_only"), ("train_scale0", "with_coords"),
-                        ("train_step_captured", "src_only"), ("756x1008", "src_only")):
+                        ("train_step_captured", "src_only"), ("756x1008", "src_only"),
+                        ("stream_chunk", "src_only"), ("highres_chunk", "src_only")):
         src2, cx2, cy2, g2 = k2_cases[label]
         n2, c2, h2, w2 = src2.shape
         src_arg = src2 if mode == "with_coords" else None
@@ -669,29 +1081,20 @@ def main() -> int:
         del lib_out
         emit(info, phase="timing", kernel="warp_bilinear_grad", case=f"{label}/{mode}", **row)
     for label, replaces in (("train_scale0", "mine_tpu/ops/pallas/warp.py:741"),
-                            ("756x1008", "mine_tpu/ops/pallas/warp.py:585")):
+                            ("highres_chunk", "mine_tpu/ops/pallas/warp.py:585")):
         row = k2_rows[label, "src_only"]
         kernels.append(dict(
             name="warp_bilinear_grad" if label == "train_scale0"
             else "warp_bilinear_grad (banded size class)",
             route="cuda", source="mine_tpu_torch/csrc/warp_grad.cu", replaces=replaces,
-            shape=row["shape"], launches=train_launches["warp_bilinear_grad"],
-            launches_by_path={"train": train_launches["warp_bilinear_grad"]},
+            shape=row["shape"],
+            **launches_of("warp_bilinear_grad",
+                          "resident" if label == "train_scale0" else "banded"),
             max_abs_err=k2_errs[f"{label}/src_only"]["grad_src_err"],
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             blocks_by_path=row["blocks_by_path"],
         ))
-
-    def host_ms(fn, reps: int) -> float:
-        times = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t) * 1e3)
-        return statistics.median(times)
 
     predict_ms = host_ms(lambda: engine.predict(images[0]), reps=5)
     render_ms = host_ms(lambda: engine.render(entries[0], zoom[:64]), reps=3) / 64
@@ -734,6 +1137,8 @@ def main() -> int:
                       for (name, kind), v in copy_ms.items()})
 
     timed_batches = list(itertools.islice(train_ds.epoch(2), 7))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     for batch in timed_batches[:2]:  # warm-up
         trainer.step(batch)
     step_ms = statistics.median(host_ms(lambda b=b: trainer.step(b), reps=1)

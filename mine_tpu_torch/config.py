@@ -1,13 +1,14 @@
 """The configuration the port reads: the `data`, `lr`, `model`, `mpi`,
 `loss`, `training` and `mesh` groups of mine_tpu/config.py's Config and the
-`resilience.sentinel_policy` key, with the same dot-keys and defaults.
+training sentinel's `resilience.*` keys, with the same dot-keys and defaults.
 
 Config files are the JAX package's flat dot-key YAML (mine_tpu/configs/*.yaml
 are read as data files). Keys of the other groups (obs, serving, parallel,
 the rest of resilience) belong to parts not ported yet and are skipped on
 load; an unknown key inside a ported group is an error, as in the JAX loader.
 Keys the port reads but does not honour yet raise where they would take
-effect (`unsupported_training_options`).
+effect (`unsupported_training_options`). `save_config` writes the flat
+dot-key YAML the loader reads (the workspace's params.yaml).
 """
 
 from __future__ import annotations
@@ -108,7 +109,13 @@ class MeshConfig:
 
 @dataclass(frozen=True)
 class ResilienceConfig:
+    # the training sentinel (resilience/sentinel.py): "off" | "skip" |
+    # "rollback" | "abort"
     sentinel_policy: str = "off"
+    sentinel_spike_factor: float = 0.0
+    sentinel_spike_window: int = 32
+    sentinel_spike_min_history: int = 5
+    max_rollbacks: int = 2
 
 
 @dataclass(frozen=True)
@@ -210,7 +217,7 @@ def load_config(*yaml_paths: str,
         for key, value in layer.items():
             group = key.partition(".")[0]
             if key in _RETIRED_KEYS or group not in _GROUPS \
-                    or (group == "resilience" and key != "resilience.sentinel_policy"):
+                    or (group == "resilience" and key not in flat):
                 continue
             if key not in flat:
                 raise KeyError(f"unknown config key: {key!r}")
@@ -218,25 +225,22 @@ def load_config(*yaml_paths: str,
     return from_flat_dict(flat)
 
 
+def save_config(cfg: Config, path: str) -> None:
+    """The config as flat dot-key YAML (mine_tpu/config.py save_config)."""
+    flat = {k: (list(v) if isinstance(v, tuple) else v) for k, v in to_flat_dict(cfg).items()}
+    with open(path, "w") as fh:
+        yaml.safe_dump(flat, fh, sort_keys=True)
+
+
 def unsupported_training_options(cfg: Config) -> list[str]:
     """The options set away from their defaults that the port's training
     path does not honour yet, each naming its ROADMAP queue 1 item."""
-    later = "waits for ROADMAP queue 1 item 3 (checkpoints, accumulation, " \
-        "sigma dropout, remat, sentinel)"
     found = []
-    if cfg.training.accum_steps > 1:
-        found.append(f"training.accum_steps={cfg.training.accum_steps} {later}")
-    if cfg.mpi.sigma_dropout_rate > 0:
-        found.append(f"mpi.sigma_dropout_rate={cfg.mpi.sigma_dropout_rate} {later}")
-    if cfg.model.remat_decoder:
-        found.append(f"model.remat_decoder {later}")
-    if cfg.resilience.sentinel_policy != "off":
-        found.append(f"resilience.sentinel_policy={cfg.resilience.sentinel_policy!r} {later}")
-    if cfg.training.pretrained_checkpoint_path:
-        found.append(f"training.pretrained_checkpoint_path {later}")
-    if cfg.model.pretrained_backbone_path:
-        found.append("model.pretrained_backbone_path: weight loading for training "
-                     f"{later}")
+    warm = cfg.training.pretrained_checkpoint_path
+    if warm and not warm.endswith(".npz"):
+        found.append(f"training.pretrained_checkpoint_path={warm!r}: the port warm-starts "
+                     "from a converted .npz; other checkpoint formats wait for ROADMAP "
+                     "queue 1 item 5")
     if cfg.mpi.num_bins_fine > 0:
         found.append("mpi.num_bins_fine > 0 waits for ROADMAP queue 1 item 5 "
                      "(coarse-to-fine)")

@@ -99,6 +99,11 @@ class SyntheticDataset:
     def __len__(self) -> int:
         return self.steps_per_epoch
 
+    @property
+    def num_eval_examples(self) -> int:
+        """Examples in one pass (no batch is padded): run_evaluation's audit."""
+        return self.steps_per_epoch * self.batch_size
+
     def epoch(self, epoch: int):
         for step in range(self.steps_per_epoch):
             batch = make_synthetic_batch(

@@ -1,2 +1,2 @@
-"""Training losses and metrics (counterpart of mine_tpu/losses; LPIPS is
-eval-only and not ported yet)."""
+"""Training losses and metrics (counterpart of mine_tpu/losses; LPIPS in
+lpips.py is eval-only)."""

@@ -9,7 +9,9 @@ JAX to the port is the exact inverse of those two converters: HWIO kernels
 become OIHW, BatchNorm scale/bias/mean/var become
 weight/bias/running_mean/running_var. A gradient tree is the `params/` part
 of that layout. Strict both ways: a missing key raises KeyError, a leftover
-one ValueError.
+one ValueError. `load_npz_subtrees` reads a converted .npz for a warm start
+(training.pretrained_checkpoint_path, model.pretrained_backbone_path), as
+mine_tpu/models/pretrained.py does.
 """
 
 from __future__ import annotations
@@ -135,6 +137,30 @@ def jax_variables_to_torch(flat: Mapping[str, np.ndarray],
             state[torch_key[: -len("running_var")] + "num_batches_tracked"] = \
                 torch.tensor(0, dtype=torch.long)
     return state
+
+
+_SUBTREES = ("backbone", "decoder")
+
+
+def load_npz_subtrees(path: str, num_layers: int,
+                      expect_subtrees: tuple[str, ...] | None = None) -> dict[str, torch.Tensor]:
+    """The state-dict entries of the subtrees ("backbone", "decoder") a
+    converted .npz covers. Strict per covered subtree: every variable of it
+    present, nothing else (KeyError / ValueError). With `expect_subtrees`
+    the .npz must cover exactly those."""
+    with np.load(path) as raw:
+        flat = {k: raw[k] for k in raw.files}
+    for key in flat:
+        parts = key.split("/", 2)
+        if len(parts) != 3 or parts[0] not in ("params", "batch_stats") \
+                or parts[1] not in _SUBTREES:
+            raise ValueError(f"{path}: unexpected key {key!r}, not a converted MINE .npz")
+    covered = sorted({key.split("/")[1] for key in flat})
+    if expect_subtrees is not None and covered != sorted(expect_subtrees):
+        raise ValueError(f"{path} covers subtrees {covered}, expected {sorted(expect_subtrees)}")
+    rows = [r for r in _mapping(num_layers) if r[1].split("/")[1] in covered]
+    _check_keys(flat, [jk for _, jk, _ in rows], f"variables of {covered} in {path}")
+    return _from_jax(flat, rows)
 
 
 def jax_grads_to_torch(flat_grads: Mapping[str, np.ndarray],

@@ -13,26 +13,34 @@ import math
 import torch
 from torch import nn
 
-from mine_tpu_torch.models.decoder import MPIDecoder
+from mine_tpu_torch.models.decoder import MPIDecoder, run_checkpointed
 from mine_tpu_torch.models.encoder import ResNetEncoder
 
 
 class MPINetwork(nn.Module):
     """src images (B, H, W, 3) in [0, 1] + plane disparities (B, S) ->
-    {scale: (B, S, H/2^s, W/2^s, 4)} fp32 rgb + sigma MPIs."""
+    {scale: (B, S, H/2^s, W/2^s, 4)} fp32 rgb + sigma MPIs.
+
+    `remat` (model.remat_decoder) recomputes activations in the backward: the
+    encoder as one checkpointed region, the decoder stage by stage (see
+    decoder.py). `sigma_keep`: the decoder's sigma dropout masks."""
 
     def __init__(self, num_layers: int = 50, multires: int = 10, use_alpha: bool = False,
-                 scales: tuple[int, ...] = (0, 1, 2, 3), decoder_width_multiple: int = 1):
+                 scales: tuple[int, ...] = (0, 1, 2, 3), decoder_width_multiple: int = 1,
+                 sigma_dropout_rate: float = 0.0, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.backbone = ResNetEncoder(num_layers)
         self.decoder = MPIDecoder(
             self.backbone.num_ch_enc, multires=multires, use_alpha=use_alpha,
             scales=scales, width_multiple=decoder_width_multiple,
+            sigma_dropout_rate=sigma_dropout_rate,
         )
 
-    def forward(self, src_imgs: torch.Tensor,
-                disparity: torch.Tensor) -> dict[int, torch.Tensor]:
-        return self.decoder(self.backbone(src_imgs), disparity)
+    def forward(self, src_imgs: torch.Tensor, disparity: torch.Tensor,
+                sigma_keep: torch.Tensor | None = None) -> dict[int, torch.Tensor]:
+        features = run_checkpointed(self.remat, self.backbone, src_imgs)
+        return self.decoder(features, disparity, sigma_keep, remat=self.remat)
 
 
 @torch.no_grad()

@@ -19,9 +19,11 @@ mine_tpu/ops/grid_sample.py. Three kernels:
     front-to-back over-composite of the streaming compositor, which computes
     each plane's sample coordinates, target-frame z and distances from
     per-plane 3x3 matrices and reads the MPI in place. Replaces
-    warp_composite_chw and the coordinate prep in front of it. Forward-only:
-    a call that would need a gradient raises instead of returning a detached
-    result. Its plain version is `warp_composite_matrix_plain`: the
+    warp_composite_chw and the coordinate prep in front of it. Forward-only
+    (a call that would need a gradient raises instead of returning a detached
+    result): the streaming render's backward (mpi_render.RenderTgtStreaming)
+    recomputes the scan through warp_bilinear, as the JAX package's
+    custom_vjp does. Its plain version is `warp_composite_matrix_plain`: the
     coordinates in torch (`composite_operands`), then `warp_composite_plain`,
     the coordinate form the Pallas kernel computes.
 
@@ -383,8 +385,9 @@ def warp_composite(mpi_rgb: torch.Tensor, mpi_sigma: torch.Tensor,
     operands = (mpi_rgb, mpi_sigma, h_src_tgt, xyz_m, xyz_t)
     if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
         raise NotImplementedError(
-            "warp_composite is forward-only; the streaming compositor's "
-            "training backward is ROADMAP queue 1 item 1"
+            "warp_composite is forward-only; a streaming render that needs a "
+            "gradient goes through mpi_render.RenderTgtStreaming, whose backward "
+            "recomputes the scan through warp_bilinear"
         )
     if not _route("warp_composite", *operands):
         return warp_composite_matrix_plain(*operands)

@@ -1,5 +1,5 @@
-"""MPI compositing (counterpart of mine_tpu/ops/mpi_render.py, the parts that
-serving runs).
+"""MPI compositing (counterpart of mine_tpu/ops/mpi_render.py without the
+plane-sharded twins).
 
 Layout is channel-last (B, S, H, W, C) as in the JAX package; the plane axis
 S is axis 1 and every cumulative product runs over it.
@@ -10,15 +10,18 @@ Two target compositors:
   * streaming: B*S tiny per-plane matrices in torch, then the fused
     warp-composite kernel, which computes each plane's coordinates from them,
     reads the MPI in place and never materialises a warped plane or an
-    (S, H, W) coordinate array. Forward-only here; its backward (a
-    chunked-scan recompute) is not ported yet.
+    (S, H, W) coordinate array. Its backward recomputes the chunked scan
+    through the warp kernel and its backward (RenderTgtStreaming); alpha MPIs
+    take that scan forward and backward.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable, NamedTuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from mine_tpu_torch.ops.geometry import (
     apply_3x3,
@@ -194,13 +197,6 @@ def render_tgt_rgb_depth(mpi_rgb_src, mpi_sigma_src, mpi_disparity_src, g_tgt_sr
     return rgb, depth, torch.sum(valid.to(mpi_rgb_src.dtype), dim=1)[..., None]
 
 
-def _finalize_depth(z_sum, w_sum, is_bg_depth_inf: bool):
-    """Composited z partial sums -> depth, as the dense sigma reductions."""
-    if is_bg_depth_inf:
-        return z_sum + (1.0 - w_sum) * 1000.0
-    return z_sum / (w_sum + 1.0e-5)
-
-
 def streaming_inputs(mpi_rgb_src, mpi_sigma_src, mpi_disparity_src, g_tgt_src,
                      k_src_inv, k_tgt) -> tuple[torch.Tensor, ...]:
     """The coordinate-form operands of one target render, as the Pallas
@@ -240,22 +236,204 @@ def streaming_matrices(mpi_disparity_src, g_tgt_src, k_src_inv, k_tgt):
             fp32_or_wider(g_tgt_src[:, :3, 3], (b, 3)))
 
 
+# -- streaming target compositor -------------------------------------------------
+#
+# Over-compositing is a prefix product over S, so the plane axis can be
+# streamed in chunks that carry only (B, H, W, .) accumulators. The forward of
+# a sigma MPI is one warp_composite launch (K5); its backward, and the whole of
+# an alpha MPI's render, is the chunked scan of the JAX package's _stream_scan,
+# each chunk warped through warp_bilinear (K1 forward, K2 backward). Neither
+# pass holds a (B, S, H, W, .) warped tensor.
+
+DEFAULT_STREAM_CHUNK = 4
+
+
+def _chunk_size(s: int, requested: int) -> int:
+    """Largest divisor of the plane count <= the requested chunk size (an odd
+    S degrades to smaller chunks instead of failing); >= 1 always."""
+    requested = max(1, min(int(requested), s))
+    for d in range(requested, 0, -1):
+        if s % d == 0:
+            return d
+    return 1
+
+
+def plane_tgt_xyz(depth, g_tgt_src, k_src_inv, k_tgt, h: int, w: int) -> torch.Tensor:
+    """Target-frame xyz of ONE plane per batch item at its own warp coords,
+    depth (B,) -> (B, H, W, 3): the same formulas as warp_mpi_to_tgt's xyz,
+    so the streaming scan gets the next chunk's first plane (its halo) without
+    touching that chunk's payload."""
+    src_xy, _ = homography_sample_coords(depth, g_tgt_src, k_src_inv, k_tgt, h, w)
+    return _affine_tgt_xyz(src_xy, depth, g_tgt_src, k_src_inv, h, w)
+
+
+def _finalize_depth(z_sum, w_sum, use_alpha: bool, is_bg_depth_inf: bool):
+    """Composited z partial sums -> depth, as the dense reductions."""
+    if use_alpha:
+        return z_sum
+    if is_bg_depth_inf:
+        return z_sum + (1.0 - w_sum) * 1000.0
+    return z_sum / (w_sum + 1.0e-5)
+
+
+def _stream_chunk(rgb, sigma, disparity, next_depth, t_acc, g_tgt_src, k_src_inv, k_tgt,
+                  use_alpha: bool, bg_last: bool):
+    """One chunk of the streaming scan (the body of the JAX package's
+    _stream_scan). rgb (B, c, H, W, 3), sigma (B, c, H, W, 1), disparity
+    (B, c); next_depth (B,) is the depth of the plane after the chunk's last;
+    t_acc (B, H, W, 1) the transmittance entering the chunk. With bg_last the
+    chunk's last plane is the MPI's last, whose distance is BG_DIST. Returns
+    the chunk's (rgb, z, weight) sums, its in-FoV plane count (B, H, W) and
+    the transmittance leaving it."""
+    tgt_rgb, tgt_sigma, tgt_xyz, valid = warp_mpi_to_tgt(
+        rgb, sigma, disparity, g_tgt_src, k_src_inv, k_tgt)
+    if use_alpha:
+        alpha = tgt_sigma
+        trans_local = torch.cumprod(1.0 - alpha, dim=1)
+    else:
+        h, w = rgb.shape[2:4]
+        xyz_next = plane_tgt_xyz(next_depth, g_tgt_src, k_src_inv, k_tgt, h, w)
+        diff = torch.diff(torch.cat([tgt_xyz, xyz_next[:, None]], dim=1), dim=1)
+        if bg_last:
+            # the background slot's diff is replaced BEFORE the norm: the
+            # norm's gradient at the zero vector is 0/0
+            last = torch.zeros((1, rgb.shape[1], 1, 1, 1), dtype=torch.bool, device=rgb.device)
+            last[:, -1] = True
+            diff = torch.where(last, 1.0, diff)
+            dist = torch.where(last, BG_DIST, torch.linalg.vector_norm(diff, dim=-1, keepdim=True))
+        else:
+            dist = torch.linalg.vector_norm(diff, dim=-1, keepdim=True)
+        transparency = torch.exp(-tgt_sigma * dist)
+        alpha = 1.0 - transparency
+        trans_local = torch.cumprod(transparency + 1.0e-6, dim=1)
+    weights = t_acc[:, None] * _shifted_exclusive(trans_local) * alpha
+    return (torch.sum(weights * tgt_rgb, dim=1), torch.sum(weights * tgt_xyz[..., 2:3], dim=1),
+            torch.sum(weights, dim=1), torch.sum(valid.to(rgb.dtype), dim=1),
+            t_acc * trans_local[:, -1])
+
+
+def _chunk_args(mpi_rgb, mpi_sigma, disparity, chunk: int, k: int):
+    """(rgb, sigma, disparity, next_depth, is_last) of chunk k; the trailing
+    chunk's halo is its own last plane, whose slot holds the background."""
+    n = mpi_rgb.shape[1] // chunk
+    sl = slice(k * chunk, (k + 1) * chunk)
+    nxt = disparity[:, (k + 1) * chunk] if k < n - 1 else disparity[:, -1]
+    return mpi_rgb[:, sl], mpi_sigma[:, sl], disparity[:, sl], 1.0 / nxt, k == n - 1
+
+
+def _stream_sweep(mpi_rgb, mpi_sigma, disparity, g_tgt_src, k_src_inv, k_tgt,
+                  use_alpha: bool, chunk: int, n_chunks: int):
+    """The scan over the first n_chunks chunks: returns the (rgb, z, weight,
+    mask) sums and the transmittance entering each chunk and leaving the
+    last, n_chunks + 1 tensors of (B, H, W, 1)."""
+    b, _, h, w, _ = mpi_rgb.shape
+    sums = None
+    trans = [mpi_rgb.new_ones((b, h, w, 1))]
+    for k in range(n_chunks):
+        rgb, sigma, disp, nxt, last = _chunk_args(mpi_rgb, mpi_sigma, disparity, chunk, k)
+        *parts, t_out = _stream_chunk(rgb, sigma, disp, nxt, trans[-1], g_tgt_src, k_src_inv,
+                                      k_tgt, use_alpha, last)
+        sums = parts if sums is None else [a + p for a, p in zip(sums, parts)]
+        trans.append(t_out)
+    return sums, trans
+
+
+class RenderTgtStreaming(torch.autograd.Function):
+    """The streaming target render with a chunked-recompute backward (the
+    custom_vjp _render_tgt_fused of the JAX package).
+
+    Forward: sigma MPIs run one warp_composite launch (K5), alpha MPIs the
+    chunked scan, both with autograd off; only the inputs are saved. Backward:
+    a sweep over all chunks but the last, with autograd off, keeps the
+    transmittance entering each chunk (the sums enter later chunks with an
+    identity Jacobian, so they need no carry); then the chunks in reverse, each
+    recomputed with autograd on and back-propagated with the carried
+    transmittance cotangent. Each chunk's warp is warp_bilinear: K1 forward,
+    K2 backward, K2 without the coordinate cotangent unless a pose or
+    disparity needs a gradient. Working set O(chunk H W). Outputs: the rgb
+    (B, H, W, 3), z and weight (B, H, W, 1) sums and the in-FoV plane count
+    (B, H, W), not differentiable."""
+
+    @staticmethod
+    def forward(ctx, mpi_rgb, mpi_sigma, disparity, g_tgt_src, k_src_inv, k_tgt,
+                use_alpha: bool, chunk: int):
+        ctx.save_for_backward(mpi_rgb, mpi_sigma, disparity, g_tgt_src, k_src_inv, k_tgt)
+        ctx.use_alpha, ctx.chunk = use_alpha, chunk
+        if use_alpha:
+            (rgb, z, wsum, mask), _ = _stream_sweep(
+                mpi_rgb, mpi_sigma, disparity, g_tgt_src, k_src_inv, k_tgt, True, chunk,
+                mpi_rgb.shape[1] // chunk)
+        else:
+            acc = warp_composite(mpi_rgb.contiguous(), mpi_sigma.contiguous(), *streaming_matrices(
+                disparity, g_tgt_src, k_src_inv, k_tgt)).permute(0, 2, 3, 1)
+            rgb, z, wsum, mask = acc[..., 0:3], acc[..., 3:4], acc[..., 4:5], acc[..., 5]
+        ctx.mark_non_differentiable(mask)
+        return rgb, z, wsum, mask
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_rgb, g_z, g_w, _g_mask):
+        inputs = ctx.saved_tensors
+        mpi_rgb, mpi_sigma = inputs[:2]
+        chunk, n = ctx.chunk, mpi_rgb.shape[1] // ctx.chunk
+        _, trans = _stream_sweep(*inputs, ctx.use_alpha, chunk, n - 1)
+        need_rgb, need_sigma, *need_small = ctx.needs_input_grad[:6]
+        # the (B, S) and per-batch operands are leaves whose gradient sums
+        # over the chunks; rgb and sigma are cut into per-chunk leaves
+        small = [x.detach().requires_grad_(nd) for x, nd in zip(inputs[2:], need_small)]
+        grad_rgb = torch.empty_like(mpi_rgb) if need_rgb else None
+        grad_sigma = torch.empty_like(mpi_sigma) if need_sigma else None
+        grad_small = [None] * 4
+        g_t = None
+        for k in reversed(range(n)):
+            t_in = trans[k].detach().requires_grad_(k > 0)
+            with torch.enable_grad():
+                rgb, sigma, disp, nxt, last = _chunk_args(mpi_rgb, mpi_sigma, small[0], chunk, k)
+                rgb = rgb.detach().requires_grad_(need_rgb)
+                sigma = sigma.detach().requires_grad_(need_sigma)
+                *sums, _, t_out = _stream_chunk(rgb, sigma, disp, nxt, t_in, *small[1:],
+                                                ctx.use_alpha, last)
+            outs = list(zip(sums + [t_out], [g_rgb, g_z, g_w, g_t]))
+            outs = [(o, c) for o, c in outs if c is not None and o.requires_grad]
+            wrt = [x for x in (rgb, sigma, *small, t_in) if x.requires_grad]
+            got = iter(torch.autograd.grad([o for o, _ in outs], wrt, [c for _, c in outs],
+                                           allow_unused=True))
+            sl = slice(k * chunk, (k + 1) * chunk)
+            for leaf, dest in ((rgb, grad_rgb), (sigma, grad_sigma)):
+                if leaf.requires_grad:
+                    g = next(got)
+                    dest[:, sl] = 0.0 if g is None else g
+            for i, leaf in enumerate(small):
+                if leaf.requires_grad:
+                    g = next(got)
+                    if g is not None:
+                        grad_small[i] = g if grad_small[i] is None else grad_small[i] + g
+            g_t = next(got) if t_in.requires_grad else None
+        return (grad_rgb, grad_sigma, *grad_small, None, None)
+
+
 def render_tgt_rgb_depth_streaming(mpi_rgb_src, mpi_sigma_src, mpi_disparity_src,
                                    g_tgt_src, k_src_inv, k_tgt, use_alpha: bool = False,
-                                   is_bg_depth_inf: bool = False):
-    """Streaming twin of render_tgt_rgb_depth (same signature and outputs):
-    the per-plane matrices here, then one warp_composite launch for the whole
-    S-plane sweep, which reads mpi_rgb_src / mpi_sigma_src in place."""
-    if use_alpha:
-        raise ValueError(
-            "the streaming compositor composites sigma MPIs; alpha MPIs "
-            "(mpi.use_alpha) render with mpi.compositor: dense"
-        )
-    acc = warp_composite(mpi_rgb_src, mpi_sigma_src, *streaming_matrices(
-        mpi_disparity_src, g_tgt_src, k_src_inv, k_tgt
-    ))  # (B, 7, H, W): rgb sums (3), z sum, weight sum, valid count, transmittance
-    depth = _finalize_depth(acc[:, 3, ..., None], acc[:, 4, ..., None], is_bg_depth_inf)
-    return acc[:, 0:3].permute(0, 2, 3, 1), depth, acc[:, 5, ..., None]
+                                   is_bg_depth_inf: bool = False,
+                                   chunk_planes: int = DEFAULT_STREAM_CHUNK):
+    """Streaming twin of render_tgt_rgb_depth (same signature and outputs).
+
+    Without a gradient to compute, a sigma MPI renders with one warp_composite
+    launch that reads the MPI in place (the serving path). Otherwise, and for
+    every alpha MPI, the render goes through RenderTgtStreaming, whose
+    backward recomputes the scan chunk by chunk (chunk_planes, degraded to a
+    divisor of S)."""
+    operands = (mpi_rgb_src, mpi_sigma_src, mpi_disparity_src, g_tgt_src, k_src_inv, k_tgt)
+    if use_alpha or (torch.is_grad_enabled() and any(t.requires_grad for t in operands)):
+        chunk = _chunk_size(mpi_rgb_src.shape[1], chunk_planes)
+        rgb, z, wsum, mask = RenderTgtStreaming.apply(*operands, use_alpha, chunk)
+    else:
+        acc = warp_composite(mpi_rgb_src.contiguous(), mpi_sigma_src.contiguous(),
+                             *streaming_matrices(mpi_disparity_src, g_tgt_src, k_src_inv, k_tgt))
+        # (B, 7, H, W): rgb sums (3), z sum, weight sum, valid count, transmittance
+        acc = acc.permute(0, 2, 3, 1)
+        rgb, z, wsum, mask = acc[..., 0:3], acc[..., 3:4], acc[..., 4:5], acc[..., 5]
+    return rgb, _finalize_depth(z, wsum, use_alpha, is_bg_depth_inf), mask[..., None]
 
 
 class Compositor(NamedTuple):
@@ -267,15 +445,22 @@ class Compositor(NamedTuple):
 
 
 DENSE_COMPOSITOR = Compositor(render_src, weighted_sum_src, render_tgt_rgb_depth)
-STREAMING_COMPOSITOR = Compositor(render_src, weighted_sum_src,
-                                  render_tgt_rgb_depth_streaming)
+
+
+def streaming_compositor(chunk_planes: int) -> Compositor:
+    """The streaming peer of DENSE_COMPOSITOR. Only the target render
+    streams: the source sweep's per-plane weights feed the source-RGB
+    blending, so render_src keeps them."""
+    return Compositor(render_src, weighted_sum_src,
+                      partial(render_tgt_rgb_depth_streaming, chunk_planes=chunk_planes))
 
 
 def compositor_from_config(cfg) -> Compositor:
-    """cfg.mpi.compositor ("dense" | "streaming") -> Compositor."""
+    """cfg.mpi.compositor ("dense" | "streaming") -> Compositor; streaming
+    scans in chunks of cfg.mpi.stream_chunk_planes planes."""
     name = cfg.mpi.compositor
     if name == "dense":
         return DENSE_COMPOSITOR
     if name == "streaming":
-        return STREAMING_COMPOSITOR
+        return streaming_compositor(cfg.mpi.stream_chunk_planes)
     raise ValueError(f"mpi.compositor={name!r} must be 'dense' or 'streaming'")

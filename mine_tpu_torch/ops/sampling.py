@@ -58,9 +58,10 @@ def uniform_disparity_from_bins(
 
 
 def fixed_disparity_linspace(batch_size: int, num_bins: int, start: float, end: float,
-                             device: torch.device | str | None = None) -> torch.Tensor:
-    """Deterministic plane disparities, near plane first. Returns (B, S) fp32."""
-    d = torch.from_numpy(np.linspace(start, end, num_bins).astype(np.float32))
+                             device: torch.device | str | None = None,
+                             dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Deterministic plane disparities, near plane first. Returns (B, S)."""
+    d = torch.from_numpy(np.linspace(start, end, num_bins)).to(dtype)
     return d.to(device)[None, :].expand(batch_size, num_bins)
 
 

@@ -1,0 +1,213 @@
+"""Checkpoints of the port's training state (counterpart of
+mine_tpu/training/checkpoint.py, in a format of its own: orbax needs JAX).
+
+One directory per step, `<workspace>/checkpoints/<step>/state.pt`, written
+into a temporary directory and renamed into place, so a step directory is
+either absent or complete. The file is one torch.save'd dict: the model's
+state dict (BatchNorm statistics included), the optimizer's and the
+schedule's, `global_step`, and the states of the disparity and dropout
+generators; it loads with `weights_only=True`. As in the JAX package the
+newest `max_to_keep` steps are kept, and every step divisible by
+`keep_period`.
+
+Beside the checkpoints, as in the JAX package:
+  * params.yaml, the merged config as flat dot-key YAML (save_paired_config
+    / load_paired_config);
+  * last_good.json, the newest step saved while the training sentinel saw
+    only finite steps (mark_last_good / last_good_step / last_good_target);
+  * integrity/<step>.json, a sha256 manifest of the step directory written
+    after the commit; loading re-hashes it and raises CheckpointCorrupt on a
+    mismatch (a checkpoint without a sidecar verifies vacuously).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import shutil
+from typing import Any
+
+import torch
+
+from mine_tpu_torch.config import Config, load_config, save_config
+
+STATE_FILE = "state.pt"
+
+
+def checkpoint_path(workspace: str) -> str:
+    return os.path.abspath(os.path.join(workspace, "checkpoints"))
+
+
+def all_steps(workspace: str) -> list[int]:
+    """The committed steps, ascending."""
+    root = checkpoint_path(workspace)
+    if not os.path.isdir(root):
+        return []
+    return sorted(int(name) for name in os.listdir(root) if name.isdigit())
+
+
+def latest_step(workspace: str) -> int | None:
+    steps = all_steps(workspace)
+    return steps[-1] if steps else None
+
+
+def save(workspace: str, state: dict[str, Any], step: int, max_to_keep: int = 3,
+         keep_period: int | None = None) -> None:
+    """Commit `state` as step `step`, record its integrity sidecar, then
+    drop the steps past the retention rule. A step already on disk raises."""
+    root = checkpoint_path(workspace)
+    final = os.path.join(root, str(int(step)))
+    if os.path.exists(final):
+        raise FileExistsError(f"checkpoint step {step} already exists under {root}")
+    tmp = os.path.join(root, f".tmp-{int(step)}-{os.getpid()}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    with open(os.path.join(tmp, STATE_FILE), "wb") as fh:
+        torch.save(state, fh)
+        fh.flush()
+        os.fsync(fh.fileno())
+    os.replace(tmp, final)
+    write_integrity_sidecar(workspace, step)
+    steps = all_steps(workspace)
+    for old in steps[:-max_to_keep] if max_to_keep > 0 else []:
+        if keep_period and old % keep_period == 0:
+            continue
+        shutil.rmtree(os.path.join(root, str(old)), ignore_errors=True)
+        try:
+            os.remove(_integrity_path(workspace, old))
+        except OSError:
+            pass
+
+
+def load(workspace: str, step: int) -> dict[str, Any]:
+    """Verify step `step` against its integrity sidecar, then load it (on
+    the CPU, weights_only)."""
+    verify_checkpoint_integrity(workspace, step)
+    path = os.path.join(checkpoint_path(workspace), str(int(step)), STATE_FILE)
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def save_paired_config(cfg: Config, workspace: str) -> None:
+    """Archive the merged config into the workspace as params.yaml."""
+    os.makedirs(workspace, exist_ok=True)
+    save_config(cfg, os.path.join(workspace, "params.yaml"))
+
+
+def load_paired_config(workspace: str, overrides: dict | str | None = None) -> Config:
+    """The config a training run archived, with `overrides` on top."""
+    return load_config(os.path.join(workspace, "params.yaml"), overrides=overrides)
+
+
+# -- last-good pointer (the sentinel's rollback target) -------------------------
+
+
+def _last_good_path(workspace: str) -> str:
+    return os.path.join(workspace, "last_good.json")
+
+
+def _write_json_atomic(path: str, payload: dict) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "w") as fh:
+        json.dump(payload, fh, sort_keys=True)
+    os.replace(tmp, path)  # readers see the old file or the new one, never half
+
+
+def mark_last_good(workspace: str, step: int) -> None:
+    """Record `step` as the newest checkpoint known healthy."""
+    _write_json_atomic(_last_good_path(workspace), {"step": int(step)})
+
+
+def last_good_step(workspace: str) -> int | None:
+    try:
+        with open(_last_good_path(workspace)) as fh:
+            return int(json.load(fh)["step"])
+    except (OSError, ValueError, KeyError):
+        return None
+
+
+def last_good_target(workspace: str) -> int:
+    """The newest retained step at or before the last-good pointer; with no
+    pointer (or nothing under it) the newest retained step. Raises
+    FileNotFoundError when the workspace holds no checkpoint."""
+    steps = all_steps(workspace)
+    if not steps:
+        raise FileNotFoundError(f"rollback requested but {workspace} holds no checkpoint")
+    pointer = last_good_step(workspace)
+    candidates = [s for s in steps if pointer is None or s <= pointer]
+    return max(candidates) if candidates else max(steps)
+
+
+# -- integrity sidecar ------------------------------------------------------------
+
+
+class CheckpointCorrupt(ValueError):
+    """A checkpoint's bytes no longer match the manifest recorded when it
+    was saved."""
+
+    def __init__(self, context: str, problems: list[str]):
+        self.problems = problems
+        shown = "; ".join(problems[:5])
+        more = f" (+{len(problems) - 5} more)" if len(problems) > 5 else ""
+        super().__init__(f"{context}: {shown}{more}")
+
+
+def _integrity_path(workspace: str, step: int) -> str:
+    return os.path.join(workspace, "integrity", f"{int(step)}.json")
+
+
+def _step_manifest(workspace: str, step: int) -> dict[str, dict]:
+    """relative path -> {"bytes", "sha256"} for every file of the step."""
+    root = os.path.join(checkpoint_path(workspace), str(int(step)))
+    if not os.path.isdir(root):
+        raise CheckpointCorrupt(f"checkpoint step {step} under {workspace}",
+                                [f"step directory missing: {root}"])
+    manifest: dict[str, dict] = {}
+    for dirpath, dirnames, filenames in os.walk(root):
+        dirnames.sort()
+        for name in sorted(filenames):
+            full = os.path.join(dirpath, name)
+            digest = hashlib.sha256()
+            with open(full, "rb") as fh:
+                for block in iter(lambda: fh.read(1 << 20), b""):
+                    digest.update(block)
+            manifest[os.path.relpath(full, root)] = {
+                "bytes": os.path.getsize(full), "sha256": digest.hexdigest()}
+    return manifest
+
+
+def _manifest_sha256(manifest: dict[str, dict]) -> str:
+    return hashlib.sha256(json.dumps(manifest, sort_keys=True).encode()).hexdigest()
+
+
+def write_integrity_sidecar(workspace: str, step: int) -> None:
+    manifest = _step_manifest(workspace, step)
+    _write_json_atomic(_integrity_path(workspace, step), {
+        "step": int(step), "manifest_sha256": _manifest_sha256(manifest), "files": manifest})
+
+
+def verify_checkpoint_integrity(workspace: str, step: int) -> None:
+    """Re-hash the step directory against its sidecar; CheckpointCorrupt
+    names the diverging files. No sidecar: nothing to verify."""
+    try:
+        with open(_integrity_path(workspace, step)) as fh:
+            recorded = json.load(fh)
+    except OSError:
+        return
+    except ValueError as exc:
+        raise CheckpointCorrupt(f"checkpoint step {step} under {workspace}",
+                                [f"unreadable integrity sidecar: {exc}"]) from None
+    actual = _step_manifest(workspace, step)
+    want = recorded.get("files", {})
+    problems = [f"missing file {n}" for n in sorted(set(want) - set(actual))]
+    problems += [f"unexpected file {n}" for n in sorted(set(actual) - set(want))]
+    for name in sorted(set(want) & set(actual)):
+        if want[name] != actual[name]:
+            problems.append(f"file {name}: recorded {want[name]['bytes']}B sha256 "
+                            f"{want[name]['sha256'][:12]}, found {actual[name]['bytes']}B "
+                            f"sha256 {actual[name]['sha256'][:12]}")
+    if not problems and recorded.get("manifest_sha256") != _manifest_sha256(actual):
+        problems.append("manifest sha256 mismatch")
+    if problems:
+        raise CheckpointCorrupt(f"checkpoint step {step} under {workspace}", problems)

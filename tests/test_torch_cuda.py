@@ -225,3 +225,54 @@ def test_warp_bilinear_grad_paths_match_plain(cuda, case, with_coords):
         assert blocks["shared"] == 0, blocks
     else:
         assert blocks["shared"] > 0 and blocks["direct"] > 0, blocks
+
+
+@pytest.mark.parametrize("pose,use_alpha", [("gentle", False), ("edge_on", False),
+                                            ("gentle", True)])
+def test_streaming_render_gradients_match_the_plain_scan(cuda, pose, use_alpha):
+    """The streaming render's backward on the card (its chunked scan through
+    the warp and its backward kernels) against the same scan on their plain
+    versions, and the launches it made: K5 once for a sigma MPI's forward
+    (the scan for an alpha MPI's), K1 2 S/chunk - 1 times, K2 S/chunk times.
+    The backward kernel's atomics reorder sums: atol 1e-5 of max |grad|."""
+    from mine_tpu_torch.ops import mpi_render as mr
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    n, s, h, w, chunk = 2, 8, 40, 72, 4
+    k = torch.tensor([[36.0, 0, w / 2], [0, 36.0, h / 2], [0, 0, 1]], device=cuda).expand(n, 3, 3)
+    tx, ty, tz, yaw = COMPOSITE_POSES[pose]
+    g = torch.eye(4, device=cuda).repeat(n, 1, 1)
+    g[:, 0, 0], g[:, 0, 2], g[:, 2, 0], g[:, 2, 2] = (math.cos(yaw), math.sin(yaw),
+                                                      -math.sin(yaw), math.cos(yaw))
+    g[:, :3, 3] = torch.tensor([tx, ty, tz], device=cuda)
+    rest = (torch.linspace(1.0, 0.1, s, device=cuda)[None].repeat(n, 1), g,
+            inverse_3x3(k).contiguous(), k.contiguous())
+    rgb = torch.rand((n, s, h, w, 3), generator=gen, device=cuda)
+    sigma = torch.rand((n, s, h, w, 1), generator=gen, device=cuda) * (0.9 if use_alpha else 3)
+    c_rgb = torch.randn((n, h, w, 3), generator=gen, device=cuda)
+
+    def grads():
+        r, sg = rgb.clone().requires_grad_(), sigma.clone().requires_grad_()
+        out = mr.render_tgt_rgb_depth_streaming(r, sg, *rest, use_alpha=use_alpha,
+                                                chunk_planes=chunk)
+        (torch.sum(out[0] * c_rgb) + torch.sum(out[1])).backward()
+        return r.grad, sg.grad
+
+    kw.reset_launches()
+    got = grads()
+    torch.cuda.synchronize()
+    n_chunks = s // chunk
+    assert kw.launches == {
+        "warp_composite": 0 if use_alpha else 1,
+        "warp_bilinear": 2 * n_chunks - 1 + (n_chunks if use_alpha else 0),
+        "warp_bilinear_grad": n_chunks}
+    kernels = kw._warp_bilinear_forward, kw.warp_bilinear_grad
+    kw._warp_bilinear_forward, kw.warp_bilinear_grad = (kw.warp_bilinear_plain,
+                                                        kw.warp_bilinear_grad_plain)
+    try:
+        want = grads()
+    finally:
+        kw._warp_bilinear_forward, kw.warp_bilinear_grad = kernels
+    for a, b in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * float(b.abs().max()))

@@ -108,15 +108,21 @@ def test_streaming_render_masks_planes_behind_the_camera(scene):
 def test_compositor_from_config():
     assert mr.compositor_from_config(Config()) is mr.DENSE_COMPOSITOR
     streaming = Config().replace(**{"mpi.compositor": "streaming"})
-    assert mr.compositor_from_config(streaming) is mr.STREAMING_COMPOSITOR
+    got = mr.compositor_from_config(streaming)
+    assert got.render_tgt_rgb_depth.func is mr.render_tgt_rgb_depth_streaming
+    assert got.render_src is mr.DENSE_COMPOSITOR.render_src  # only the target render streams
+    assert got.render_tgt_rgb_depth.keywords == {"chunk_planes": 4}
+    chunk8 = streaming.replace(**{"mpi.stream_chunk_planes": 8})
+    assert mr.compositor_from_config(chunk8).render_tgt_rgb_depth.keywords == {"chunk_planes": 8}
     assert JaxConfig().mpi.compositor == Config().mpi.compositor
+    assert JaxConfig().mpi.stream_chunk_planes == Config().mpi.stream_chunk_planes
     with pytest.raises(ValueError, match="dense"):
         mr.compositor_from_config(Config().replace(**{"mpi.compositor": "sparse"}))
-    with pytest.raises(ValueError, match="alpha"):
-        mr.render_tgt_rgb_depth_streaming(
-            *(torch.zeros(1, 2, 8, 8, c) for c in (3, 1)), torch.ones(1, 2),
-            torch.eye(4)[None], torch.eye(3)[None], torch.eye(3)[None], use_alpha=True,
-        )
+    # alpha MPIs render through the chunked scan, as the dense compositor does
+    args = (torch.full((1, 2, 8, 8, 3), 0.5), torch.full((1, 2, 8, 8, 1), 0.4), torch.ones(1, 2),
+            torch.eye(4)[None], torch.eye(3)[None], torch.eye(3)[None])
+    _close(mr.render_tgt_rgb_depth_streaming(*args, use_alpha=True),
+           mr.render_tgt_rgb_depth(*args, use_alpha=True), 1e-6, ["rgb", "depth", "mask"])
 
 
 @pytest.mark.parametrize("compositor", ["dense", "streaming"])
@@ -133,13 +139,12 @@ def test_render_novel_view_with_scale_factor_matches_jax(scene, compositor):
     cfg = Config().replace(**{"mpi.compositor": compositor})
     want = jax_render_novel_view(jcfg, *j, scale_factor=jnp.asarray(sf))
     t_sf = torch.from_numpy(sf).requires_grad_()
-    t[0].requires_grad_(compositor == "dense")
+    t[0].requires_grad_()
     got = render_novel_view(cfg, *t, scale_factor=t_sf)
     names = ["tgt_imgs_syn", "tgt_disparity_syn", "tgt_mask_syn"]
     tol = 1e-5 if compositor == "dense" else 1e-4
     _close([got[n].detach() for n in names], [want[n] for n in names], tol, names)
     unscaled = render_novel_view(cfg, *(x.detach() for x in t))
     assert not np.allclose(unscaled["tgt_imgs_syn"].numpy(), got["tgt_imgs_syn"].detach().numpy())
-    if compositor == "dense":
-        got["tgt_imgs_syn"].sum().backward()
-        assert t_sf.grad is None and t[0].grad is not None
+    got["tgt_imgs_syn"].sum().backward()
+    assert t_sf.grad is None and t[0].grad is not None

@@ -207,11 +207,15 @@ def test_infer_cli_writes_videos(weights, tmp_path):
 def test_config_files_load_as_in_jax(name):
     """The shipped YAMLs, read as data files, give the port every key and
     value the JAX loader gives in the groups the port copies whole (data, lr,
-    model, mpi, loss, training, mesh), and resilience.sentinel_policy."""
+    model, mpi, loss, training, mesh), and the training sentinel's
+    resilience keys."""
     paths = [os.path.join(CONFIGS_DIR, "default.yaml"), os.path.join(CONFIGS_DIR, f"{name}.yaml")]
     got = to_flat_dict(load_config(*paths))
+    sentinel_keys = {"resilience.sentinel_policy", "resilience.sentinel_spike_factor",
+                     "resilience.sentinel_spike_window", "resilience.sentinel_spike_min_history",
+                     "resilience.max_rollbacks"}
     want = {k: v for k, v in jax_flat_dict(jax_load_config(*paths)).items()
             if k.split(".")[0] in ("data", "lr", "model", "mpi", "loss", "training", "mesh")
-            or k == "resilience.sentinel_policy"}
+            or k in sentinel_keys}
     assert got == want
 
