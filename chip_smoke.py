@@ -44,7 +44,16 @@ From the root of a checkout, on a machine with a CUDA device and nvcc:
      workspace bit-equal; the eval pass with LPIPS (seeded weights) at full
      width; the 768x1024, S=128, B=1 recipe with remat (llff_highres.yaml),
      whose scale-0 warps are the size class of the TPU's banded kernels;
-  7. times every kernel (CUDA events), its plain version and, for the warp
+  7. trains from the datasets' own on-disk formats (data_phases): the
+     default recipe (ResNet-50, 384x512, S=32, B=4, bf16, dense) from an LLFF
+     fixture stored at 378x504 through Trainer.fit with a checkpoint and an
+     eval (3 val views wrap-padded to 4) and through the train and evaluate
+     CLIs as subprocesses; the loader's construction, batch build and copy to
+     the card (pageable and pinned) timed; the step fed by the loader with 4
+     and with 0 workers and by synthetic batches, alternated, for both
+     compositors; the six other recipes at their own shapes from their
+     fixtures, contract-checked, 2 steps each;
+  8. times every kernel (CUDA events), its plain version and, for the warp
      and its backward, torch's grid_sample, beside each kernel's memory
      bound (the backward also on the captured training operands; the
      warp-composite also at the 768x1024, S=128 size); times predict and
@@ -66,6 +75,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -532,6 +542,319 @@ def streaming_phases(info, dev, gen, h, w, s, train_cfg, train_state, batch_size
     return out
 
 
+# the stored size of real LLFF images_8 (4032x3024 / 8), which the default
+# recipe resizes bicubically to 384x512
+LLFF_STORED_HW = (378, 504)
+# the feed timing: rounds of the three feeds in turn, steps per feed and
+# round, and how many of those first steps are not counted (the pipeline
+# fills: 4 workers build up to 4 batches ahead)
+FEED_ROUNDS, FEED_STEPS, FEED_SKIP = 3, 6, 2
+# recipe yaml -> fixture writer arguments near the recipe's own size, with
+# at least one batch of train views (DTU's B=8 needs 8); flowers' writer
+# needs square views, so its 384x384 tiles are resized to 384x512
+RECIPE_FIXTURES = {
+    "realestate": {"hw": (256, 384)},
+    "kitti_raw": {"hw": (128, 384)},
+    "dtu": {"hw": (256, 384), "n_views": 8},
+    "flowers": {"hw": (384, 384)},
+    "objectron": {"hw": (384, 640)},
+    "nocs_llff": {},  # always stored at 384x640, the loader's crop
+}
+# the sparse points each sparse-depth fixture holds, against the recipe's
+# data.visible_point_count (drawn with replacement from fewer)
+RECIPE_POINTS = {
+    "realestate10k": "a 64-point sequence cloud; 256 drawn with replacement",
+    "objectron": "a 64-point scene cloud; 250 drawn with replacement",
+    "nocs_llff": "80 points tracked a view; data.visible_point_count 256 -> 64",
+}
+
+
+def run_cli(argv: list[str], timeout_s: float = 300.0) -> subprocess.CompletedProcess:
+    """`python -m <argv>` from the checkout's root on the card; raises with its
+    stderr if it exits non-zero."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-m", *argv], cwd=root, capture_output=True,
+                          text=True, timeout=timeout_s)
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m {argv[0]} exited {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+    return proc
+
+
+def data_phases(info, dev, train_state) -> dict:
+    """Training from the datasets' own on-disk formats: the default recipe
+    (ResNet-50, 384x512, S=32, B=4, bf16, dense) from an LLFF fixture stored
+    at 378x504, through Trainer.fit with a checkpoint and an eval and through
+    the train and evaluate CLIs; the loader's costs (construction, batch
+    build, the copy to the card from pageable and pinned memory); the step
+    fed three ways (the loader with 4 workers and with 0, synthetic batches),
+    alternated, for both compositors; then the six other recipes at their own
+    shapes from their fixtures, contract-checked, 2 steps each. Returns the
+    launches of each path (by kernel and TPU size class)."""
+    import shutil
+
+    from mine_tpu_torch.config import load_config
+    from mine_tpu_torch.data.conformance import check_contract, contract_for_config
+    from mine_tpu_torch.data.conformance.fixtures import write_fixture
+    from mine_tpu_torch.data.registry import build_dataset
+    from mine_tpu_torch.ops.kernels import warp as kw
+    from mine_tpu_torch.training import checkpoint as ckpt
+    from mine_tpu_torch.training.loop import Trainer, staged_batches
+    from mine_tpu_torch.training.step import batch_to_device, pin_batch
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    configs = os.path.join(root, "mine_tpu", "configs")
+    scratch = os.path.join(root, "build", "chip_smoke", "data")
+    shutil.rmtree(scratch, ignore_errors=True)
+    out = {}
+    tally = SizeTally(kw)
+
+    def counted(path: str, fn):
+        """fn() with the launch counts read around it alone."""
+        torch.cuda.synchronize()
+        kw.reset_launches()
+        tally.reset()
+        result = fn()
+        torch.cuda.synchronize()
+        out[path] = {"kernels": dict(kw.launches), "sizes": tally.read()}
+        return result
+
+    # the default recipe from its own format: the LLFF fixture at the stored
+    # size of real images_8, 8 train + 3 val views
+    t0 = time.perf_counter()
+    path = write_fixture("llff", os.path.join(scratch, "llff"), hw=LLFF_STORED_HW,
+                         n_views=8, n_val_views=3)
+    write_s = time.perf_counter() - t0
+    reduced = {"data.img_pre_downsample_ratio": 1.0,  # the camera sits at stored size
+               "data.visible_point_count": 64}  # the fixture tracks 80 points a view
+    overrides = {"data.training_set_path": path, **reduced, "training.log_interval": 1,
+                 "training.checkpoint_interval": 3, "training.eval_interval": 3}
+    cfg = load_config(os.path.join(configs, "default.yaml"), overrides=overrides)
+    b = cfg.data.per_gpu_batch_size
+    if (cfg.data.name, cfg.data.img_h, cfg.data.img_w, cfg.mpi.num_bins_coarse, b,
+            cfg.model.num_layers, cfg.model.dtype, cfg.mpi.compositor) != \
+            ("llff", 384, 512, 32, 4, 50, "bfloat16", "dense"):
+        raise AssertionError(f"default.yaml is not the LLFF recipe this phase drives: {cfg}")
+    t0 = time.perf_counter()
+    train_ds = build_dataset(cfg, "train", b)
+    val_ds = build_dataset(cfg, "val", b)
+    construct_s = time.perf_counter() - t0
+    n_images = len(train_ds.frames) + len(val_ds.frames)
+    build_ms = []
+    for e in range(1, 6):  # epoch() alone: each batch stacked and its points drawn
+        t0 = time.perf_counter()
+        n = sum(1 for _ in train_ds.epoch(e))
+        build_ms.append((time.perf_counter() - t0) * 1e3 / n)
+    syn_ds = build_dataset(cfg.replace(**{"data.name": "synthetic"}), "train", b)
+    syn_build_ms = []
+    for e in range(3):  # epoch() alone: the first batch, rendered by numpy
+        t0 = time.perf_counter()
+        next(iter(syn_ds.epoch(e)))
+        syn_build_ms.append((time.perf_counter() - t0) * 1e3)
+    batch = next(iter(train_ds.epoch(0)))
+    batch_bytes = sum(v.nbytes for v in batch.values())
+    image_bytes = batch["src_img"].nbytes + batch["tgt_img"].nbytes
+    h2d = {"pageable": [], "pinned": [], "pin": []}
+    for rep in range(12):
+        for kind in ("pageable", "pinned") if rep % 2 == 0 else ("pinned", "pageable"):
+            src = batch
+            if kind == "pinned":
+                t0 = time.perf_counter()
+                src = pin_batch(batch)
+                h2d["pin"].append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch_to_device(src, dev)
+            torch.cuda.synchronize()
+            h2d[kind].append((time.perf_counter() - t0) * 1e3)
+    emit(info, phase="data_loader", recipe="default.yaml (llff)", fixture={
+        "stored_hw": list(LLFF_STORED_HW), "train_views": len(train_ds.frames),
+        "val_views": len(val_ds.frames), "points_per_view": 80, "write_s": write_s},
+         reduced=reduced, construct_s=construct_s, images=n_images,
+         images_per_s=n_images / construct_s, batch_build_ms=statistics.median(build_ms),
+         batch_build_ms_runs=build_ms, synthetic_batch_build_ms=statistics.median(syn_build_ms),
+         synthetic_batch_build_ms_runs=syn_build_ms, batch_bytes=batch_bytes,
+         image_bytes=image_bytes,
+         h2d_ms={k: statistics.median(v) for k, v in h2d.items()}, h2d_ms_runs=h2d)
+
+    # Trainer.fit: 3 steps, a checkpoint and the eval at step 3
+    ws = os.path.join(scratch, "ws_fit")
+    trainer = Trainer(cfg, ws, state_dict=train_state)
+    steps = 3
+    logged = counted("data_llff", lambda: trainer.fit(train_ds, val_ds, max_steps=steps))
+    with open(os.path.join(ws, "train_log.jsonl")) as fh:
+        log = [json.loads(ln) for ln in fh]
+    (val_batch,) = list(val_ds.epoch(0))
+    want = {"warp_bilinear": 4 * steps + 4 * len(val_ds), "warp_bilinear_grad": 4 * steps,
+            "warp_composite": 0}
+    result = trainer.evals[-1][1]
+    if out["data_llff"]["kernels"] != want or ckpt.all_steps(ws) != [steps] \
+            or [ln["global_step"] for ln in log] != [1, 2, 3] \
+            or not all(math.isfinite(ln["loss"]) and math.isfinite(ln["grad_norm"])
+                       for ln in log) \
+            or list(val_batch["eval_weight"]) != [1.0, 1.0, 1.0, 0.0] \
+            or result["eval_examples"] != 3 or val_ds.num_eval_examples != 3 \
+            or not all(map(math.isfinite, result.values())):
+        raise AssertionError(f"data_llff: launches {out['data_llff']}, want {want}; "
+                             f"checkpoints {ckpt.all_steps(ws)}; log {log}; eval {result}")
+    del trainer
+    torch.cuda.empty_cache()  # the subprocesses need the memory this process caches
+
+    # the same steps through the CLIs, as subprocesses on the card
+    cli_ws = os.path.join(scratch, "ws_cli")
+    t0 = time.perf_counter()
+    run_cli(["mine_tpu_torch.train", "--config", os.path.join(configs, "default.yaml"),
+             "--workspace", cli_ws, "--max_steps", str(steps),
+             "--extra_config", json.dumps(overrides)])
+    train_cli_s = time.perf_counter() - t0
+    with open(os.path.join(cli_ws, "train_log.jsonl")) as fh:
+        cli_log = [json.loads(ln) for ln in fh]
+    t0 = time.perf_counter()
+    lines = run_cli(["mine_tpu_torch.evaluate", "--checkpoint", cli_ws]).stdout.strip()
+    eval_cli_s = time.perf_counter() - t0
+    cli_eval = json.loads(lines.splitlines()[-1])
+    if len(lines.splitlines()) != 1 or cli_eval["eval_examples"] != 3 \
+            or not all(map(math.isfinite, cli_eval.values())) \
+            or [ln["global_step"] for ln in cli_log] != [1, 2, 3] \
+            or not all(math.isfinite(ln["loss"]) for ln in cli_log):
+        raise AssertionError(f"data_llff CLIs: log {cli_log}, eval {lines}")
+    emit(info, phase="data_llff",
+         config="default.yaml (llff, resnet50, 384x512, S=32, B=4, bf16, dense, stratified)",
+         reduced=reduced, steps=steps, losses=[ln["loss"] for ln in log],
+         grad_norms=[ln["grad_norm"] for ln in log], checkpoints=[steps],
+         eval={"eval_examples": result["eval_examples"], "val_batches": len(val_ds),
+               "eval_weight": val_batch["eval_weight"].tolist(), "loss": result["loss"],
+               "psnr_tgt": result["psnr_tgt"]},
+         launches=out["data_llff"], launches_per_step={"warp_bilinear": 4,
+                                                       "warp_bilinear_grad": 4},
+         cli={"train_s": train_cli_s, "losses": [ln["loss"] for ln in cli_log],
+              "eval_s": eval_cli_s, "eval": cli_eval})
+
+    # train_step_ms fed three ways, alternated on one trainer per compositor:
+    # the loop's own staging (staged_batches), one host sync a step (the
+    # loss read, as the loop's logging does at log_interval 1)
+    feeds = {"llff_workers4": (train_ds, 4), "llff_workers0": (train_ds, 0),
+             "synthetic_workers4": (syn_ds, 4)}
+
+    def quiesce(timeout_s: float = 10.0) -> None:
+        """Wait until every abandoned pipeline's producer threads have gone,
+        so that one feed's threads do not run into the next one's steps."""
+        deadline = time.perf_counter() + timeout_s
+        while any(t.name == "batch-prefetch" for t in threading.enumerate()):
+            if time.perf_counter() > deadline:
+                raise AssertionError("a closed pipeline's producer threads are still alive")
+            time.sleep(0.01)
+
+    def feed(tr, ds, workers) -> dict[str, list[float]]:
+        """FEED_STEPS steps through the loop's staging: per step the wait for
+        the batch and the step itself (to its loss on the host)."""
+        epochs = itertools.chain.from_iterable(ds.epoch(e) for e in itertools.count(1))
+        batches = staged_batches(epochs, dev, workers)
+        times = {"wait_ms": [], "step_ms": [], "total_ms": []}
+        try:
+            for _ in range(FEED_STEPS):
+                t0 = time.perf_counter()
+                batch_ = next(batches)
+                t1 = time.perf_counter()
+                tr.step(batch_)["loss"].item()
+                t2 = time.perf_counter()
+                for key, v in (("wait_ms", t1 - t0), ("step_ms", t2 - t1), ("total_ms", t2 - t0)):
+                    times[key].append(v * 1e3)
+        finally:
+            batches.close()
+            quiesce()
+        # the first steps wait for the pipeline to fill
+        return {k: v[FEED_SKIP:] for k, v in times.items()}
+
+    def feed_rounds():
+        step_ms = {}
+        for compositor in ("dense", "streaming"):
+            tr = Trainer(cfg.replace(**{"mpi.compositor": compositor}), state_dict=train_state)
+            tr.fit(train_ds, max_steps=1)  # the optimizer, and a warm-up step
+            quiesce()
+            runs = {name: {"wait_ms": [], "step_ms": [], "total_ms": []} for name in feeds}
+            names = list(feeds)
+            for r in range(FEED_ROUNDS):
+                for name in names[r:] + names[:r]:
+                    for key, v in feed(tr, *feeds[name]).items():
+                        runs[name][key] += v
+            step_ms[compositor] = runs
+            del tr
+            torch.cuda.empty_cache()
+        return step_ms
+
+    step_ms = counted("data_feed", feed_rounds)
+    n_fed = 1 + FEED_ROUNDS * len(feeds) * FEED_STEPS  # with each compositor's warm-up
+    n_chunks = cfg.mpi.num_bins_coarse // cfg.mpi.stream_chunk_planes
+    # a step renders 4 scales: dense K1 + K2 each, streaming K5 + its scan's
+    # 2 S/chunk - 1 K1 and S/chunk K2
+    want = {"warp_bilinear": n_fed * 4 * (1 + 2 * n_chunks - 1),
+            "warp_bilinear_grad": n_fed * 4 * (1 + n_chunks), "warp_composite": n_fed * 4}
+    if out["data_feed"]["kernels"] != want:
+        raise AssertionError(f"data_feed launched {out['data_feed']}, want {want}")
+    emit(info, phase="data_feed", config="default.yaml (llff) from the fixture, B=4",
+         feeds={k: {"dataset": ds.__class__.__name__, "num_workers": nw}
+                for k, (ds, nw) in feeds.items()},
+         train_step_ms={c: {k: statistics.median(v["total_ms"]) for k, v in runs.items()}
+                        for c, runs in step_ms.items()},
+         median={c: {k: {m: statistics.median(x) for m, x in v.items()} for k, v in runs.items()}
+                 for c, runs in step_ms.items()},
+         runs=step_ms, counted_per_segment=FEED_STEPS - FEED_SKIP, steps_per_compositor=n_fed,
+         launches=out["data_feed"])
+
+    # the six other recipes at their own shapes, from their own formats
+    rows = {}
+
+    def recipes():
+        for name, fixture_kwargs in RECIPE_FIXTURES.items():
+            family = contract_for_config(name).family
+            rcfg = load_config(os.path.join(configs, "default.yaml"),
+                               os.path.join(configs, name + ".yaml"))
+            shape = {"data.img_h": rcfg.data.img_h, "data.img_w": rcfg.data.img_w}
+            t0 = time.perf_counter()
+            verdict = check_contract(name, os.path.join(scratch, name), overrides=shape,
+                                     fixture_kwargs=fixture_kwargs)
+            if not verdict["ok"]:
+                raise AssertionError(f"data_recipes {name}: contract {verdict['checks']}")
+            cut = {"data.visible_point_count": 64} if family == "nocs_llff" else {}
+            rcfg = rcfg.replace(**{"data.training_set_path": verdict["fixture"], **cut})
+            rb = rcfg.data.per_gpu_batch_size
+            rds = build_dataset(rcfg, "train", rb)
+            before = dict(kw.launches)
+            tr = Trainer(rcfg, state_dict=train_state)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            rlogged = tr.fit(rds, max_steps=2)
+            torch.cuda.synchronize()
+            launched = {k: kw.launches[k] - before[k] for k in before}
+            if launched != {"warp_bilinear": 8, "warp_bilinear_grad": 8, "warp_composite": 0} \
+                    or not (math.isfinite(rlogged["loss"])
+                            and math.isfinite(rlogged["grad_norm"])):
+                raise AssertionError(f"data_recipes {name}: launches {launched}, {rlogged}")
+            rows[name] = dict(
+                family=family,
+                shape={"img_hw": [rcfg.data.img_h, rcfg.data.img_w],
+                       "planes": rcfg.mpi.num_bins_coarse, "batch": rb},
+                mpi={"disparity_start": rcfg.mpi.disparity_start,
+                     "disparity_end": rcfg.mpi.disparity_end,
+                     "is_bg_depth_inf": rcfg.mpi.is_bg_depth_inf,
+                     "valid_mask_threshold": rcfg.mpi.valid_mask_threshold},
+                fixture={"writer_args": fixture_kwargs, "train_views": len(rds.frames)},
+                reduced={"scenes": 1, "train_views": len(rds.frames),
+                         "points": RECIPE_POINTS.get(family), **cut},
+                contract=verdict["checks"], loss=rlogged["loss"],
+                grad_norm=rlogged["grad_norm"], launches=launched,
+                peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+                seconds=time.perf_counter() - t0)
+            emit(info, phase="data_recipe", recipe=name + ".yaml", **rows[name])
+            del tr
+            torch.cuda.empty_cache()
+
+    counted("data_recipes", recipes)
+    tally.close()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a "
@@ -554,7 +877,10 @@ def main() -> int:
     print(info["nvidia_smi"], flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    import PIL
+
     emit(info, phase="setup", torch=torch.__version__, cuda=torch.version.cuda,
+         pillow=PIL.__version__, numpy=np.__version__,
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
     dev = torch.device("cuda")
@@ -928,7 +1254,10 @@ def main() -> int:
     streaming = streaming_phases(info, dev, gen, h, w, s, train_cfg, train_state, batch_size,
                                  trainer, train_ds)
 
-    # 7. timings
+    # 7. training from the datasets' own formats
+    data_launches = data_phases(info, dev, train_state)
+
+    # 8. timings
     def grid_of(cx, cy, hh, ww):
         return torch.stack([(cx + 0.5) / (0.5 * ww) - 1.0, (cy + 0.5) / (0.5 * hh) - 1.0], -1)
 
@@ -958,7 +1287,17 @@ def main() -> int:
             bound_ms=b_ms, bound_by=b_by, library_max_abs_diff=lib_gap,
         )
         emit(info, phase="timing", kernel="warp_bilinear", case=label, **warp_rows[label])
-    paths = streaming["launches"]
+    # K1 against grid_sample in turns, 5 windows each: the spread of the
+    # reading behind the roofline share and the library comparison
+    spread = {"ms": [], "library_ms": []}
+    for _ in range(5):
+        spread["ms"].append(time_cuda_ms(lambda: kw.warp_bilinear(k1_src, k1_cx, k1_cy)))
+        spread["library_ms"].append(time_cuda_ms(lambda: grid_sample(k1_src, k1_grid)))
+    emit(info, phase="timing", kernel="warp_bilinear", case="dense_in_turns",
+         shape=list(k1_src.shape), bound_ms=warp_rows["dense"]["bound_ms"],
+         median={k: statistics.median(v) for k, v in spread.items()}, runs=spread,
+         share_of_bound=warp_rows["dense"]["bound_ms"] / statistics.median(spread["ms"]))
+    paths = {**streaming["launches"], **data_launches}
 
     def launches_of(name: str, size_class: str) -> dict:
         """The launches of `name` at one TPU size class on each main path: the

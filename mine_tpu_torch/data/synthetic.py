@@ -1,11 +1,13 @@
 """Synthetic two-view scene with analytically known geometry (the port's
-own copy of mine_tpu/data/synthetic.py, without the COLMAP writer).
+own copy of mine_tpu/data/synthetic.py).
 
 Scene: a far fronto-parallel plane at FAR_DEPTH plus a near occluder strip at
 NEAR_DEPTH; texture is a smooth analytic function of the plane point, so any
 camera pose renders exactly (pixels are evaluated, not warped). It is the
 zero-setup dataset for training runs (`data.name: synthetic`): every batch
 is generated procedurally, so training runs with nothing on disk.
+`write_colmap_scene` lays the same scene down as an LLFF/COLMAP directory
+(the fixtures of data/conformance/fixtures.py).
 """
 
 from __future__ import annotations
@@ -81,20 +83,94 @@ def _sample_points(
     return (pts - cam_pos[None, :]).astype(np.float32)
 
 
+def write_colmap_scene(
+    root: str,
+    scene: str,
+    n_views: int = 4,
+    hw: tuple[int, int] = (64, 64),
+    n_val_views: int = 0,
+    phase: float = 0.3,
+) -> list[np.ndarray]:
+    """Write the analytic scene to disk in LLFF/COLMAP layout (images/ +
+    sparse/0 binary model), for fixtures and loader measurements. Camera i
+    sits at [0.06i, 0.02i, 0] with identity rotation; every 3D point is
+    tracked in every view. With n_val_views > 0, extra held-out cameras
+    (offset half a baseline step from the train line, so no val pose equals
+    a train pose) land in images_val/, the `<folder>_val` layout
+    LLFFDataset's val split reads; all poses live in the one sparse/0
+    model. Returns the train camera positions. The model files are
+    byte-equal to the JAX package's, the images decode equal."""
+    import os
+
+    from mine_tpu_torch.data import colmap
+    from mine_tpu_torch.data.image import save_png
+
+    h, w = hw
+    k = _intrinsics(h, w)
+    scene_dir = os.path.join(root, scene)
+    os.makedirs(os.path.join(scene_dir, "sparse/0"), exist_ok=True)
+    os.makedirs(os.path.join(scene_dir, "images"), exist_ok=True)
+    if n_val_views:
+        os.makedirs(os.path.join(scene_dir, "images_val"), exist_ok=True)
+
+    rng = np.random.default_rng(0)
+    world_pts = _sample_points(rng, 80, np.zeros(3))  # camera-0 frame == world
+    points3d = {
+        i + 1: colmap.Point3D(i + 1, world_pts[i].astype(np.float64),
+                              np.array([255, 0, 0], np.uint8), 0.5)
+        for i in range(len(world_pts))
+    }
+
+    cameras = {1: colmap.Camera(1, "SIMPLE_RADIAL", w, h,
+                                np.array([k[0, 0], k[0, 2], k[1, 2], 0.0]))}
+    images = {}
+    positions = []
+    views = [(f"view_{i:03d}.png", np.array([0.06 * i, 0.02 * i, 0.0]), "images")
+             for i in range(n_views)]
+    views += [(f"val_{j:03d}.png",
+               np.array([0.06 * j + 0.03, 0.02 * j + 0.01, 0.0]), "images_val")
+              for j in range(n_val_views)]
+    for img_id, (name, pos, folder) in enumerate(views, start=1):
+        if folder == "images":
+            positions.append(pos)
+        img, _ = _render_view(h, w, k, pos, phase=phase)
+        save_png((img * 255).astype(np.uint8), os.path.join(scene_dir, folder, name))
+        # G_cam_world = [I | -pos]; all points tracked in every view
+        uvw = (world_pts - pos) @ k.T
+        xys = uvw[:, :2] / uvw[:, 2:]
+        images[img_id] = colmap.ImageMeta(
+            img_id, np.array([1.0, 0, 0, 0]), (-pos).astype(np.float64), 1, name,
+            xys.astype(np.float64), np.arange(1, len(world_pts) + 1, dtype=np.int64),
+        )
+
+    colmap.write_cameras_binary(cameras, os.path.join(scene_dir, "sparse/0/cameras.bin"))
+    colmap.write_images_binary(images, os.path.join(scene_dir, "sparse/0/images.bin"))
+    colmap.write_points3d_binary(points3d, os.path.join(scene_dir, "sparse/0/points3D.bin"))
+    return positions
+
+
 class SyntheticDataset:
     """Procedural dataset speaking the loader protocol (`len()` steps per
     epoch, `epoch(n)` iterating numpy batch dicts). Every batch is a fresh
     scene, deterministic in (seed, epoch, step), each example seeded by its
-    index in the batch."""
+    GLOBAL index in the batch: with `host_slice=(start, count)` only those
+    rows are made, bit for bit the rows of the whole batch."""
 
-    def __init__(self, height: int, width: int, batch_size: int,
-                 steps_per_epoch: int = 50, n_points: int = 256, seed: int = 0):
+    def __init__(self, height: int, width: int, global_batch: int,
+                 steps_per_epoch: int = 50, n_points: int = 256, seed: int = 0,
+                 host_slice: tuple[int, int] | None = None):
         self.height = height
         self.width = width
-        self.batch_size = batch_size
+        self.global_batch = global_batch
         self.steps_per_epoch = steps_per_epoch
         self.n_points = n_points
         self.seed = seed
+        if host_slice is not None:
+            start, count = host_slice
+            if start < 0 or count < 1 or start + count > global_batch:
+                raise ValueError(f"host_slice={host_slice} outside the global batch "
+                                 f"of {global_batch}")
+        self.host_slice = host_slice
 
     def __len__(self) -> int:
         return self.steps_per_epoch
@@ -102,13 +178,15 @@ class SyntheticDataset:
     @property
     def num_eval_examples(self) -> int:
         """Examples in one pass (no batch is padded): run_evaluation's audit."""
-        return self.steps_per_epoch * self.batch_size
+        rows = self.host_slice[1] if self.host_slice else self.global_batch
+        return self.steps_per_epoch * rows
 
     def epoch(self, epoch: int):
+        start, count = self.host_slice or (0, self.global_batch)
         for step in range(self.steps_per_epoch):
             batch = make_synthetic_batch(
-                self.batch_size, self.height, self.width, n_points=self.n_points,
-                seed=self.seed + epoch * 1_000_003 + step,
+                count, self.height, self.width, n_points=self.n_points,
+                seed=self.seed + epoch * 1_000_003 + step, example_offset=start,
             )
             batch.pop("src_depth")
             yield batch

@@ -7,7 +7,9 @@ once the sentinel has vetted it), eval over the val set every
 auto-resume from the workspace (`training.resume_from`: latest | last_good),
 a warm start from a converted .npz, the sentinel's rollback loop, and an
 emergency checkpoint when a run dies (never masking the error), and a
-torch.profiler trace of the first `profile_steps` steps. The rest of
+torch.profiler trace of the first `profile_steps` steps. Batches come through
+`staged_batches`: built `data.num_workers` ahead on a host thread, in
+page-locked memory, with `data.loader_retries` retries. The rest of
 observability, the flight recorder, the preemption guard and the multi-host
 layers are not ported (ROADMAP queue 1).
 """
@@ -19,18 +21,25 @@ import logging
 import os
 import time
 from itertools import islice
-from typing import Any, Mapping
+from typing import Any, Callable, Iterable, Iterator, Mapping
 
 import torch
 
 from mine_tpu_torch.config import Config, unsupported_training_options
+from mine_tpu_torch.data.pipeline import prefetch
 from mine_tpu_torch.losses.lpips import load_lpips_params
 from mine_tpu_torch.models.convert import load_npz_subtrees
 from mine_tpu_torch.models.mpi import init_weights
 from mine_tpu_torch.resilience.sentinel import SentinelAbort, SentinelRollback, TrainingSentinel
 from mine_tpu_torch.training import checkpoint as ckpt
 from mine_tpu_torch.training.optimizer import make_optimizer
-from mine_tpu_torch.training.step import batch_to_device, build_model, eval_step, train_step
+from mine_tpu_torch.training.step import (
+    batch_to_device,
+    build_model,
+    eval_step,
+    pin_batch,
+    train_step,
+)
 from mine_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger("mine_tpu_torch")
@@ -66,6 +75,25 @@ class AverageMeter:
         return self.sum / self.count if self.count else 0.0
 
 
+def staged_batches(epoch_iter: Iterable[dict], device: torch.device, num_workers: int,
+                   retries: int = 0,
+                   on_retry: Callable[[int, BaseException], None] | None = None,
+                   ) -> Iterator[dict]:
+    """Pipeline overlap (mine_tpu/training/loop.py staged_batches): host
+    batches are built up to `num_workers` ahead on a background thread,
+    each into fresh page-locked tensors there, so that the consumer's copy
+    to the card (batch_to_device, on the consumer's stream) is issued
+    without blocking the host. The JAX package's second stage, which
+    bounds the batches staged in device memory, has nothing to bound here:
+    no batch reaches the card before its step. `retries`
+    (data.loader_retries) bounds transient-error retries (data/pipeline.py).
+    num_workers 0 is fully synchronous and copies from pageable memory, as
+    does a CPU device (nothing to pin). Close the returned generator when
+    abandoning it early: its producer thread then stops."""
+    pin = pin_batch if num_workers > 0 and device.type == "cuda" else None
+    return prefetch(epoch_iter, num_workers, transfer=pin, retries=retries, on_retry=on_retry)
+
+
 def _to_host(values: Mapping[str, torch.Tensor]) -> dict[str, float]:
     """Device scalars -> floats in one transfer."""
     keys = list(values)
@@ -81,18 +109,23 @@ def run_evaluation(cfg: Config, model: torch.nn.Module, val_ds: Any,
     value averaged over the genuine examples (each batch weighted by its
     eval_examples), plus "eval_examples", their count, which must equal the
     dataset's num_eval_examples when it declares one. Disparities come from
-    a generator seeded training.seed + 17."""
+    a generator seeded training.seed + 17. Batches are staged as in training
+    (staged_batches, data.num_workers ahead, no retries)."""
     meters = {k: AverageMeter(k) for k in LOSS_KEYS}
     generator = torch.Generator().manual_seed(cfg.training.seed + 17)
     n_examples = 0
-    for batch in val_ds.epoch(0):
-        loss_dict, _ = eval_step(cfg, model, batch_to_device(batch, device), generator,
-                                 lpips_params)
-        host = _to_host({k: loss_dict[k] for k in LOSS_KEYS + ("eval_examples",)})
-        n_batch = int(round(host.pop("eval_examples")))
-        n_examples += n_batch
-        for k, v in host.items():
-            meters[k].update(v, n=n_batch)
+    batches = staged_batches(val_ds.epoch(0), torch.device(device), cfg.data.num_workers)
+    try:
+        for batch in batches:
+            loss_dict, _ = eval_step(cfg, model, batch_to_device(batch, device), generator,
+                                     lpips_params)
+            host = _to_host({k: loss_dict[k] for k in LOSS_KEYS + ("eval_examples",)})
+            n_batch = int(round(host.pop("eval_examples")))
+            n_examples += n_batch
+            for k, v in host.items():
+                meters[k].update(v, n=n_batch)
+    finally:
+        batches.close()
     expected = getattr(val_ds, "num_eval_examples", None)
     if expected is not None and n_examples != expected:
         raise RuntimeError(f"eval example count mismatch: metered {n_examples}, dataset "
@@ -317,50 +350,57 @@ class Trainer:
                 break
             for m in meters.values():
                 m.reset()
-            batches, step_in_epoch = train_ds.epoch(epoch), 0
+            epoch_iter, step_in_epoch = train_ds.epoch(epoch), 0
             if epoch == start_epoch and skip:
                 # loaders are deterministic in (epoch, step): a mid-epoch
-                # start skips the batches the run already trained on
-                batches, step_in_epoch = islice(batches, skip, None), skip
-            for batch in batches:
-                step_in_epoch += 1
-                if self.global_step == start and self.profile_steps:
-                    profiler = torch.profiler.profile(activities=[
-                        torch.profiler.ProfilerActivity.CPU,
-                        *([torch.profiler.ProfilerActivity.CUDA] if self.device.type == "cuda"
-                          else [])])
-                    profiler.start()
-                loss_dict = self.step(batch)
-                if self.global_step == start + self.profile_steps and self.profile_steps:
-                    profiler.stop()
-                    path = os.path.join(self.workspace, "profile", "train_steps.trace.json")
-                    os.makedirs(os.path.dirname(path), exist_ok=True)
-                    profiler.export_chrome_trace(path)
-                    logger.info("profile trace of %d steps written to %s", self.profile_steps,
-                                path)
-                self.sentinel.observe(self.global_step, loss_dict["update_skipped"])
-                since_log += 1
-                done = max_steps is not None and self.global_step >= max_steps
-                if step_in_epoch % tcfg.log_interval == 0 or done:
-                    logged = _to_host(loss_dict)
-                    for k in LOSS_KEYS:
-                        meters[k].update(logged[k], since_log)
-                    rate = since_log * self.batch_size / (time.perf_counter() - t_log)
-                    self._log(epoch, step_in_epoch, steps_per_epoch, logged, rate)
-                    t_log, since_log = time.perf_counter(), 0
-                    self.sentinel.check(logged["loss"], self.global_step)
-                if self.workspace and self.global_step % tcfg.checkpoint_interval == 0:
-                    # resolve the pending flags first: a trip rolls back or
-                    # aborts instead of blessing a suspect step
-                    self.sentinel.flush(self.global_step)
-                    self.save_checkpoint()
-                    ckpt.mark_last_good(self.workspace, self.global_step)
-                    logger.info("checkpoint saved @ step %d", self.global_step)
-                if val_ds is not None and (self.global_step == FIRST_EVAL_STEP
-                                           or self.global_step % tcfg.eval_interval == 0):
-                    self.evaluate(val_ds)
-                if done:
-                    break
+                # start skips the batches the run already trained on, on the
+                # host, before they enter the pipeline
+                epoch_iter, step_in_epoch = islice(epoch_iter, skip, None), skip
+            batches = staged_batches(epoch_iter, self.device, cfg.data.num_workers,
+                                     cfg.data.loader_retries, self._on_loader_retry)
+            try:
+                for batch in batches:
+                    step_in_epoch += 1
+                    if self.global_step == start and self.profile_steps:
+                        activities = [torch.profiler.ProfilerActivity.CPU]
+                        if self.device.type == "cuda":
+                            activities.append(torch.profiler.ProfilerActivity.CUDA)
+                        profiler = torch.profiler.profile(activities=activities)
+                        profiler.start()
+                    loss_dict = self.step(batch)
+                    if self.global_step == start + self.profile_steps and self.profile_steps:
+                        profiler.stop()
+                        path = os.path.join(self.workspace, "profile", "train_steps.trace.json")
+                        os.makedirs(os.path.dirname(path), exist_ok=True)
+                        profiler.export_chrome_trace(path)
+                        logger.info("profile trace of %d steps written to %s",
+                                    self.profile_steps, path)
+                    self.sentinel.observe(self.global_step, loss_dict["update_skipped"])
+                    since_log += 1
+                    done = max_steps is not None and self.global_step >= max_steps
+                    if step_in_epoch % tcfg.log_interval == 0 or done:
+                        logged = _to_host(loss_dict)
+                        for k in LOSS_KEYS:
+                            meters[k].update(logged[k], since_log)
+                        rate = since_log * self.batch_size / (time.perf_counter() - t_log)
+                        self._log(epoch, step_in_epoch, steps_per_epoch, logged, rate)
+                        t_log, since_log = time.perf_counter(), 0
+                        self.sentinel.check(logged["loss"], self.global_step)
+                    if self.workspace and self.global_step % tcfg.checkpoint_interval == 0:
+                        # resolve the pending flags first: a trip rolls back or
+                        # aborts instead of blessing a suspect step
+                        self.sentinel.flush(self.global_step)
+                        self.save_checkpoint()
+                        ckpt.mark_last_good(self.workspace, self.global_step)
+                        logger.info("checkpoint saved @ step %d", self.global_step)
+                    if val_ds is not None and (self.global_step == FIRST_EVAL_STEP
+                                               or self.global_step % tcfg.eval_interval == 0):
+                        self.evaluate(val_ds)
+                    if done:
+                        break
+            finally:
+                # a rollback or an error abandons the epoch: stop its threads
+                batches.close()
             if any(m.count for m in meters.values()):
                 logger.info("epoch [%03d] avg: loss=%.4f rgb_tgt=%.4f ssim_tgt=%.4f psnr=%.2f",
                             epoch, meters["loss"].avg, meters["loss_rgb_tgt"].avg,
@@ -373,6 +413,9 @@ class Trainer:
                 self.save_checkpoint()
             ckpt.mark_last_good(self.workspace, self.global_step)
         return logged
+
+    def _on_loader_retry(self, attempt: int, exc: BaseException) -> None:
+        logger.warning("loader retry %d after %s: %s", attempt, type(exc).__name__, exc)
 
     def _log(self, epoch: int, step_in_epoch: int, steps_per_epoch: int,
              losses: dict[str, float], imgs_per_sec: float) -> None:

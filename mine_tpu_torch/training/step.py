@@ -423,6 +423,21 @@ def eval_step(cfg: Config, model: MPINetwork, batch: dict[str, torch.Tensor],
     return out, viz
 
 
+def pin_batch(batch: dict) -> dict[str, torch.Tensor]:
+    """A loader batch of numpy arrays -> fp32 host tensors in fresh
+    page-locked memory, so that batch_to_device's copy does not block the
+    host. Each batch gets its own buffers: torch's pinned-memory allocator
+    reuses a buffer only after the copies issued from it have finished."""
+    return {k: torch.as_tensor(np.asarray(v, np.float32)).pin_memory() for k, v in batch.items()}
+
+
 def batch_to_device(batch: dict, device: torch.device | str) -> dict[str, torch.Tensor]:
-    """A loader batch of numpy arrays -> fp32 tensors on `device`."""
-    return {k: torch.as_tensor(np.asarray(v, np.float32)).to(device) for k, v in batch.items()}
+    """A loader batch (numpy arrays, or pin_batch's tensors) -> fp32 tensors
+    on `device`. A pinned tensor's copy is issued on the current stream
+    without waiting for it (non_blocking); a pageable one waits."""
+    out = {}
+    for k, v in batch.items():
+        t = (v.to(torch.float32) if isinstance(v, torch.Tensor)
+             else torch.as_tensor(np.asarray(v, np.float32)))
+        out[k] = t.to(device, non_blocking=t.is_pinned())
+    return out

@@ -276,3 +276,45 @@ def test_streaming_render_gradients_match_the_plain_scan(cuda, pose, use_alpha):
     for a, b in zip(got, want):
         assert bool(torch.isfinite(a).all())
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * float(b.abs().max()))
+
+
+def test_one_llff_fixture_step_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """One Trainer step on the LLFF fixture (the port's own writer, read by
+    the port's loader), small configuration (128x128, ResNet-18, S=4, B=2,
+    fp32, TF32 off), batches staged in page-locked memory
+    (data.num_workers 2): K1 and K2 launch 4 times (one render per scale)
+    and the loss agrees with the same step on the CPU to rel 1e-4 (cuDNN's
+    and the CPU's convolutions sum in other orders)."""
+    from mine_tpu_torch.config import Config
+    from mine_tpu_torch.data.conformance.fixtures import write_fixture
+    from mine_tpu_torch.data.registry import build_dataset
+    from mine_tpu_torch.models.mpi import init_weights
+    from mine_tpu_torch.training.loop import Trainer, staged_batches
+    from mine_tpu_torch.training.step import build_model
+
+    path = write_fixture("llff", str(tmp_path), n_views=4)
+    cfg = Config().replace(**{
+        "data.training_set_path": path, "data.img_h": 128, "data.img_w": 128,
+        "data.img_pre_downsample_ratio": 1.0, "data.per_gpu_batch_size": 2,
+        "data.visible_point_count": 32, "data.num_workers": 2, "model.num_layers": 18,
+        "model.dtype": "float32", "mpi.num_bins_coarse": 4})
+    ds = build_dataset(cfg, "train", 2)
+    batches = staged_batches(ds.epoch(1), cuda, 2)
+    assert all(v.is_pinned() for v in next(batches).values())
+    batches.close()
+    state = init_weights(build_model(cfg), torch.Generator().manual_seed(4)).state_dict()
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        losses = {}
+        for where in ("cuda", "cpu"):
+            kw.reset_launches()
+            losses[where] = Trainer(cfg, device=where, state_dict=state).fit(ds, max_steps=1)
+            if where == "cuda":
+                torch.cuda.synchronize()
+                assert kw.launches == {"warp_bilinear": 4, "warp_bilinear_grad": 4,
+                                       "warp_composite": 0}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    assert math.isfinite(losses["cuda"]["loss"])
+    assert losses["cuda"]["loss"] == pytest.approx(losses["cpu"]["loss"], rel=1e-4)

@@ -486,7 +486,9 @@ def test_unhonoured_options_raise_naming_the_roadmap_item():
     for key, value in (("training.accum_steps", 2), ("mpi.sigma_dropout_rate", 0.1),
                        ("model.remat_decoder", True), ("resilience.sentinel_policy", "skip")):
         Trainer(Config().replace(**TINY, **{key: value}), device="cpu")
-    from mine_tpu_torch.data.registry import build_dataset
+    # the real dataset loaders are ported (tests/test_torch_data.py): only a
+    # name no loader registers raises now, listing the registered ones
+    from mine_tpu_torch.data.registry import UnknownDatasetError, build_dataset
 
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
-        build_dataset(Config(), "train", 1)
+    with pytest.raises(UnknownDatasetError, match="llff"):
+        build_dataset(Config().replace(**{"data.name": "imagenet"}), "train", 1)
