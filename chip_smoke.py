@@ -53,7 +53,21 @@ From the root of a checkout, on a machine with a CUDA device and nvcc:
      and with 0 workers and by synthetic batches, alternated, for both
      compositors; the six other recipes at their own shapes from their
      fixtures, contract-checked, 2 steps each;
-  8. times every kernel (CUDA events), its plain version and, for the warp
+  8. serves the data_llff workspace over HTTP (serve_phases): the serving
+     CLI as a subprocess through the conformance runner's serve stage, then
+     a ServingApp behind make_server in this process: /predict of an image
+     twice (a miss, then a hit that runs no encoder) and of a second image,
+     each with its host spans, /render of 1, 8 and 64
+     offsets (decoded frames equal the engine's own render after the same
+     uint8 rounding; PNG encoding timed apart), 8 concurrent clients x 20
+     rounds on one MPI (requests against dispatches), /healthz, /metrics,
+     /debug/trace, GET /mpi/<key> parsed by from_wire, a hot swap to a new
+     step (generation 1, the old key still renders, new predicts mint the
+     new step's key) and a shape-mismatched one refused with 422; the same
+     round at the int8 tier with pruning (bytes, planes kept, plane bucket,
+     PSNR against fp32); K5 held against its plain version at every plane
+     count the phase launched;
+  9. times every kernel (CUDA events), its plain version and, for the warp
      and its backward, torch's grid_sample, beside each kernel's memory
      bound (the backward also on the captured training operands; the
      warp-composite also at the 768x1024, S=128 size); times predict and
@@ -590,7 +604,8 @@ def data_phases(info, dev, train_state) -> dict:
     fed three ways (the loader with 4 workers and with 0, synthetic batches),
     alternated, for both compositors; then the six other recipes at their own
     shapes from their fixtures, contract-checked, 2 steps each. Returns the
-    launches of each path (by kernel and TPU size class)."""
+    launches of each path (by kernel and TPU size class) and the workspace
+    Trainer.fit wrote."""
     import shutil
 
     from mine_tpu_torch.config import load_config
@@ -852,7 +867,446 @@ def data_phases(info, dev, train_state) -> dict:
 
     counted("data_recipes", recipes)
     tally.close()
-    return out
+    return out, ws
+
+
+def decode_png(b64: str) -> np.ndarray:
+    import base64
+    import io
+
+    from PIL import Image
+
+    with Image.open(io.BytesIO(base64.b64decode(b64))) as im:
+        return np.asarray(im)
+
+
+# the /render rounds: offsets per request, and the concurrent clients
+SERVE_RENDERS = (1, 8, 64)
+SERVE_CLIENTS, SERVE_ROUNDS = 8, 20
+
+
+def serve_phases(info, dev, ws: str, images: list[np.ndarray]) -> dict:
+    """The HTTP server over a trained workspace (the data_llff phase's):
+    first the real entry point, `python -m mine_tpu_torch.serving` as a
+    subprocess through the conformance runner's serve stage; then a
+    ServingApp behind make_server in this process: /predict of one image
+    twice (a miss and a hit) and of another (a second miss), /render of 1, 8
+    and 64 offsets (frames equal to the engine's
+    own render after the same uint8 rounding), 8 concurrent clients
+    rendering one pose each of one MPI, /healthz, /metrics, /debug/trace,
+    GET /mpi/<key> parsed by from_wire, and hot swaps through /admin/swap (a
+    new step, then a shape-mismatched one, refused with 422); then the same
+    round at the int8 tier with pruning; then one app per pruned plane
+    bucket, its threshold chosen from the served MPI's own plane
+    contributions so that the predict keeps just enough planes for that
+    bucket. K5 is held against its plain version at every plane count it
+    ran at, on the inputs of the last launch of a real /render at that count
+    (a served MPI and a moved pose). The launch counts are the server's
+    own: its warm-ups and its traffic, not the renders this script makes to
+    check the frames. Returns the phase's launches and K5's inputs per plane
+    count, for the timing phase."""
+    import contextlib
+    import io
+
+    from PIL import Image
+
+    from mine_tpu_torch.data.conformance.runner import http_request, serve_stage
+    from mine_tpu_torch.inference.video import to_uint8
+    from mine_tpu_torch.inference.trajectory import poses_from_offsets
+    from mine_tpu_torch.ops import mpi_render
+    from mine_tpu_torch.ops.geometry import inverse_3x3
+    from mine_tpu_torch.ops.kernels import warp as kw
+    from mine_tpu_torch.serving.cache import MPIEntry, key_from_str
+    from mine_tpu_torch.serving.compress import from_wire, keep_mask
+    from mine_tpu_torch.serving.server import ServingApp, make_server
+    from mine_tpu_torch.training import checkpoint as ckpt
+
+    # the real entry point first, while the workspace holds its trained step
+    torch.cuda.empty_cache()
+    cli = serve_stage(ws, timeout_s=600.0)
+    if not cli["ok"] or cli["checkpoint_step"] != ckpt.latest_step(ws) \
+            or cli["backend"] != "cuda":
+        raise AssertionError(f"serve_cli: {cli}")
+    emit(info, phase="serve_cli", command="python -m mine_tpu_torch.serving --workspace "
+         "<data_llff workspace> --port 0", **{k: v for k, v in cli.items() if k != "ok"})
+
+    # every K5 launch of the server by plane count; while `recording` is
+    # set, the inputs of the latest launch at each plane count
+    k5_inputs: dict[int, tuple] = {}
+    k5_by_planes: dict[int, int] = {}
+    k5_mode = {"counting": True, "recording": None}
+    excluded = dict.fromkeys(kw.launches, 0)  # the check renders' launches
+    real_composite = mpi_render.warp_composite
+
+    def tally(*ops):
+        before = kw.launches["warp_composite"]
+        out = real_composite(*ops)
+        if kw.launches["warp_composite"] > before:
+            s_planes = ops[0].shape[1]
+            if k5_mode["counting"]:
+                k5_by_planes[s_planes] = k5_by_planes.get(s_planes, 0) + 1
+            if k5_mode["recording"] is not None:
+                k5_mode["recording"][s_planes] = ops
+        return out
+
+    @contextlib.contextmanager
+    def uncounted():
+        """This script's own reference renders: left out of the counts."""
+        before = dict(kw.launches)
+        k5_mode["counting"] = False
+        try:
+            yield
+        finally:
+            k5_mode["counting"] = True
+            for name in excluded:
+                excluded[name] += kw.launches[name] - before[name]
+
+    @contextlib.contextmanager
+    def recorded():
+        """Keep K5's inputs of the last launch in the block at each plane
+        count not yet held: a served MPI at a pose the request moved to."""
+        k5_mode["recording"] = seen = {}
+        try:
+            yield
+        finally:
+            k5_mode["recording"] = None
+        for s_planes, ops in seen.items():
+            eye = torch.eye(3, device=ops[2].device)
+            if ops[1].abs().max().item() == 0.0 or (ops[2] - eye).abs().max().item() < 1e-4:
+                raise AssertionError(f"K5's recorded S={s_planes} inputs are an empty MPI "
+                                     "or an identity pose")
+            k5_inputs.setdefault(s_planes, tuple(t.clone() for t in ops))
+
+    def png_of(img: np.ndarray) -> bytes:
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, format="PNG")
+        return buf.getvalue()
+
+    png, png2 = png_of(images[0]), png_of(images[1])
+
+    def check_frames(app, entry, body: bytes, offsets: list, what: str) -> np.ndarray:
+        """/render's frames, decoded; they must equal the engine's own
+        render of the entry after the same uint8 rounding."""
+        frames = np.stack([decode_png(f) for f in json.loads(body)["frames_png_b64"]])
+        with uncounted():
+            want = to_uint8(np.clip(app.engine.render(
+                entry, poses_from_offsets(np.asarray(offsets)))[0], 0.0, 1.0))
+        if frames.shape != want.shape or not np.array_equal(frames, want):
+            raise AssertionError(f"{what} differs from the engine's own frames, max |diff| "
+                                 f"{np.abs(frames.astype(int) - want).max()}")
+        return frames
+
+    @contextlib.contextmanager
+    def http_server(app):
+        """app behind make_server on a free localhost port; yields its URL."""
+        server = make_server(app, "127.0.0.1", 0)
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        try:
+            yield "http://%s:%d" % server.server_address[:2]
+        finally:
+            server.shutdown()
+            server.server_close()
+
+    def psnr_db(a: np.ndarray, b: np.ndarray) -> float:
+        mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
+        return float("inf") if mse == 0 else 10 * math.log10(255.0 ** 2 / mse)
+
+    def drive(app, label: str) -> dict:
+        """One HTTP round against app; returns what it measured."""
+        m = app.metrics
+        row: dict = {}
+        with http_server(app) as base:
+            # a miss, a hit of the same image, then a miss of another image;
+            # the spans say where each one's time went
+            predict_ms, predict_spans, preds = {}, {}, {}
+            for name, data in (("miss", png), ("hit", png), ("second_miss", png2)):
+                app.tracer.phase_summary(reset=True)
+                t = time.perf_counter()
+                code, body = http_request(base, "/predict", data, {"Content-Type": "image/png"})
+                predict_ms[name] = (time.perf_counter() - t) * 1e3
+                predict_spans[name] = {k: v["total_ms"]
+                                       for k, v in app.tracer.phase_summary(reset=True).items()}
+                if code != 200:
+                    raise AssertionError(f"{label} /predict {code}: {body[:300]!r}")
+                preds[name] = json.loads(body)
+            pred = preds["hit"]
+            if not pred["cached"] or preds["second_miss"]["cached"] \
+                    or m.encoder_invocations.value() != 2:
+                raise AssertionError(f"{label}: the second predict was not a cache hit "
+                                     f"({preds}, encoder {m.encoder_invocations.value()})")
+            key = pred["mpi_key"]
+            row.update(predict_ms=predict_ms, predict_spans_ms=predict_spans, predict=pred,
+                       png_bytes=len(png))
+            entry = app.cache.get(key_from_str(key), record=False)
+            bucket = app.engine.bucket(entry.bucket)
+            row["plane_bucket"] = bucket.plane_bucket(pred["planes_kept"])
+            renders = {}
+            for n in SERVE_RENDERS:
+                offsets = [[0.02 * math.sin(i / 5.0), 0.01 * math.cos(i / 7.0), 0.05 * i / n]
+                           for i in range(n)]
+                app.tracer.phase_summary(reset=True)
+                t = time.perf_counter()
+                with recorded() if n == max(SERVE_RENDERS) else contextlib.nullcontext():
+                    code, body = http_request(base, "/render", json.dumps(
+                        {"mpi_key": key, "offsets": offsets}).encode(),
+                        {"Content-Type": "application/json"})
+                wall = (time.perf_counter() - t) * 1e3
+                spans = app.tracer.phase_summary(reset=True)
+                if code != 200:
+                    raise AssertionError(f"{label} /render {n} {code}: {body[:300]!r}")
+                frames = check_frames(app, entry, body, offsets, f"{label} /render of {n}")
+                renders[n] = {
+                    "wall_ms": wall, "ms_per_frame": wall / n,
+                    "dispatch_ms_per_frame": spans["serve.dispatch"]["total_ms"] / n,
+                    "png_encode_ms_per_frame": spans["serve.encode"]["total_ms"] / n,
+                    "frames_equal_engine_render": True,
+                }
+                row.setdefault("frames", {})[n] = frames
+            row["render"] = renders
+
+            # concurrent clients, one pose each of the same MPI
+            reqs0, disp0 = m.batch_requests.value(), m.batch_dispatches.value()
+            barrier = threading.Barrier(SERVE_CLIENTS)
+            codes, latency_ms, errors = [], [], []
+
+            def client(i):
+                try:
+                    for r in range(SERVE_ROUNDS):
+                        barrier.wait(timeout=120)
+                        t0 = time.perf_counter()
+                        c, _ = http_request(base, "/render", json.dumps(
+                            {"mpi_key": key, "offsets": [[0.01 * i, 0.0, 0.01 * r]]}).encode(),
+                            {"Content-Type": "application/json"})
+                        latency_ms.append((time.perf_counter() - t0) * 1e3)
+                        codes.append(c)
+                except Exception as exc:  # noqa: BLE001 - reported below, the others freed
+                    errors.append(f"client {i}: {type(exc).__name__}: {exc}")
+                    barrier.abort()
+
+            app.tracer.phase_summary(reset=True)
+            t = time.perf_counter()
+            workers = [threading.Thread(target=client, args=(i,)) for i in range(SERVE_CLIENTS)]
+            for wkr in workers:
+                wkr.start()
+            for wkr in workers:
+                wkr.join(timeout=600)
+            if errors or any(wkr.is_alive() for wkr in workers):
+                raise AssertionError(f"{label}: concurrent clients failed or hung: {errors}")
+            wall = time.perf_counter() - t
+            spans = app.tracer.phase_summary(reset=True)
+            n_req = m.batch_requests.value() - reqs0
+            n_disp = m.batch_dispatches.value() - disp0
+            if codes.count(200) != SERVE_CLIENTS * SERVE_ROUNDS:
+                raise AssertionError(f"{label}: concurrent renders answered {sorted(set(codes))}")
+            row["concurrent"] = {
+                "clients": SERVE_CLIENTS, "rounds": SERVE_ROUNDS, "requests": n_req,
+                "dispatches": n_disp, "coalescing_ratio": n_req / n_disp,
+                "requests_per_s": n_req / wall, "wall_s": wall,
+                "latency_ms": {"p50": float(np.percentile(latency_ms, 50)),
+                               "p95": float(np.percentile(latency_ms, 95)),
+                               "max": max(latency_ms)},
+                # host spans over the block: where a request's time went
+                "spans_total_ms": {k: v["total_ms"] for k, v in spans.items()},
+                "spans_count": {k: v["count"] for k, v in spans.items()},
+            }
+
+            code, body = http_request(base, "/healthz")
+            health = json.loads(body)
+            code_m, metrics_text = http_request(base, "/metrics")
+            families = sorted({ln.split()[2] for ln in metrics_text.decode().splitlines()
+                               if ln.startswith("# TYPE")})
+            code_t, trace = http_request(base, "/debug/trace")
+            events = json.loads(trace)["traceEvents"]
+            if code != 200 or code_m != 200 or code_t != 200 or health["status"] != "ok" \
+                    or "mine_serve_encoder_invocations_total" not in families \
+                    or "mine_build_info" not in families \
+                    or not any(e.get("name") == "dispatch" for e in events):
+                raise AssertionError(f"{label}: healthz {code} {health}, metrics {code_m}, "
+                                     f"trace {code_t}")
+            row.update(healthz=health, metric_families=len(families),
+                       trace_events=len(events))
+
+            code, blob = http_request(base, "/mpi/" + key)
+            wire = from_wire(blob)
+            pairs = ([(wire.mpi_rgb, entry.mpi_rgb), (wire.mpi_sigma, entry.mpi_sigma)]
+                     if isinstance(entry, MPIEntry) else
+                     [(wire.rgb, entry.rgb), (wire.sigma, entry.sigma)])
+            if code != 200 or not all(torch.equal(a, b.cpu()) for a, b in pairs):
+                raise AssertionError(f"{label}: GET /mpi/<key> {code} does not round-trip")
+            row["wire_bytes"] = len(blob)
+            row["key"] = key
+            row["entry"] = entry
+            return row
+
+    cfg, state, step = ckpt.load_for_serving(ws)
+    mpi_render.warp_composite = tally
+    tallies = SizeTally(kw)
+    try:
+        torch.cuda.synchronize()
+        kw.reset_launches()
+        tallies.reset()
+        t = time.perf_counter()
+        app = ServingApp(cfg, state, checkpoint_step=step, swap_source=ws)
+        build_s = time.perf_counter() - t
+        t = time.perf_counter()
+        warm = app.engine.warmup()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t
+        fp32 = drive(app, "fp32")
+
+        # hot swap: a new step (the trained weights, perturbed) into the workspace
+        path = os.path.join(ckpt.checkpoint_path(ws), str(step), ckpt.STATE_FILE)
+        raw = torch.load(path, map_location="cpu", weights_only=True)
+        gen = torch.Generator().manual_seed(7)
+        raw["model"] = {k: (v + 1e-3 * torch.randn(v.shape, generator=gen) if v.dim() == 4
+                            else v) for k, v in raw["model"].items()}  # the conv kernels
+        ckpt.save(ws, raw, step + 1)
+        with http_server(app) as base:
+            torch.cuda.synchronize()
+            mem_before = torch.cuda.memory_allocated()
+            t = time.perf_counter()
+            code, body = http_request(base, "/admin/swap", json.dumps({"wait": True}).encode())
+            swap_s = time.perf_counter() - t
+            torch.cuda.synchronize()
+            mem_after = torch.cuda.memory_allocated()
+            swapped = json.loads(body)
+            old_code, _ = http_request(base, "/render", json.dumps(
+                {"mpi_key": fp32["key"], "offsets": [[0.01, 0.0, 0.0]]}).encode())
+            code_p, body_p = http_request(base, "/predict", png, {"Content-Type": "image/png"})
+            new_key = json.loads(body_p)["mpi_key"]
+            if code != 200 or swapped["state"] != "ok" or swapped["generation"] != 1 \
+                    or app.engine.generation != 1 or old_code != 200 or code_p != 200 \
+                    or new_key.split(":")[1] != str(step + 1):
+                raise AssertionError(f"swap: {code} {swapped}, old key render {old_code}, "
+                                     f"new predict {code_p} {new_key}")
+            # a candidate whose shapes do not match: 422, generation 1 serves on
+            bad = dict(raw)
+            name = next(k for k, v in raw["model"].items() if v.dim() == 4)
+            bad["model"] = {**raw["model"], name: torch.zeros(
+                (raw["model"][name].shape[0] + 1, *raw["model"][name].shape[1:]))}
+            ckpt.save(ws, bad, step + 2)
+            code_bad, body_bad = http_request(base, "/admin/swap",
+                                              json.dumps({"wait": True}).encode())
+            refused = json.loads(body_bad)
+            still_code, _ = http_request(base, "/render", json.dumps(
+                {"mpi_key": new_key, "offsets": [[0.0, 0.01, 0.0]]}).encode())
+            if code_bad != 422 or refused["state"] != "failed" \
+                    or refused["reason"] != "rejected" or app.engine.generation != 1 \
+                    or still_code != 200:
+                raise AssertionError(f"mismatched swap: {code_bad} {refused}, "
+                                     f"render {still_code}")
+        app.close()
+        swap = {"swap_s": swap_s, "status": swapped, "memory_before_bytes": mem_before,
+                "memory_after_bytes": mem_after, "old_key_render": old_code,
+                "new_key": new_key, "mismatched": {"code": code_bad, "reason":
+                                                   refused["reason"],
+                                                   "error": refused["error"][:200]}}
+        emit(info, phase="serve_http",
+             config="default.yaml (llff, resnet50, 384x512, S=32, bf16)",
+             workspace_step=step, app_build_s=build_s,
+             warmup={"first_dispatches": warm, "seconds": warm_s},
+             predict_ms=fp32["predict_ms"], predict_spans_ms=fp32["predict_spans_ms"],
+             png_bytes=fp32["png_bytes"], render=fp32["render"],
+             concurrent=fp32["concurrent"], healthz=fp32["healthz"],
+             metric_families=fp32["metric_families"], trace_events=fp32["trace_events"],
+             wire_bytes=fp32["wire_bytes"], swap=swap)
+        del app
+        torch.cuda.empty_cache()
+
+        # the compressed tier: int8 with pruning, the same image and offsets
+        cfg8 = cfg.replace(**{"serving.cache_tier": "int8",
+                              "serving.prune_transmittance_eps": 1e-3})
+        app8 = ServingApp(cfg8, state, checkpoint_step=step)
+        warm8 = app8.engine.warmup()
+        int8 = drive(app8, "int8")
+        plane_buckets = app8.engine.bucket().plane_buckets
+        app8.close()
+        del app8
+
+        # the pruned plane buckets, each reached by a real predict: the
+        # threshold sits between two of the served MPI's plane contributions,
+        # where the keep set (the last plane always kept) just fits the bucket
+        fe = fp32["entry"]
+        contrib = mpi_render.plane_contributions(
+            fe.mpi_sigma, fe.disparity, inverse_3x3(fe.k)).cpu().numpy()
+        levels = np.unique(contrib)
+        eps_by_count: dict[int, float] = {}
+        for eps in [(a + b) / 2 for a, b in zip(levels[:-1], levels[1:])] \
+                + [(levels[-1] + 1.0) / 2]:
+            keep = keep_mask(contrib, eps)
+            keep[-1] = True
+            eps_by_count.setdefault(int(keep.sum()), float(eps))
+        offsets8 = [[0.02 * math.sin(i / 5.0), 0.01 * math.cos(i / 7.0), 0.05 * i / 8]
+                    for i in range(8)]
+        pruned = {}
+        for lower, b in zip((0,) + plane_buckets, plane_buckets[:-1]):
+            counts = sorted(c for c in eps_by_count if lower < c <= b)
+            if not counts:
+                raise AssertionError(f"no threshold keeps {lower + 1}..{b} planes: "
+                                     f"contributions {contrib.tolist()}")
+            eps = eps_by_count[counts[0]]  # the fewest planes: the most padding
+            appb = ServingApp(cfg8.replace(**{"serving.prune_transmittance_eps": eps}), state,
+                              checkpoint_step=step)
+            with http_server(appb) as base:
+                t = time.perf_counter()
+                code, body = http_request(base, "/predict", png, {"Content-Type": "image/png"})
+                predict_ms = (time.perf_counter() - t) * 1e3
+                pred = json.loads(body)
+                entry = appb.cache.get(key_from_str(pred["mpi_key"]), record=False)
+                got_bucket = appb.engine.bucket(entry.bucket).plane_bucket(pred["planes_kept"])
+                if code != 200 or got_bucket != b:
+                    raise AssertionError(f"pruned predict at eps {eps}: {code} {pred}, "
+                                         f"plane bucket {got_bucket}, want {b}")
+                t = time.perf_counter()
+                with recorded():
+                    code, body = http_request(base, "/render", json.dumps(
+                        {"mpi_key": pred["mpi_key"], "offsets": offsets8}).encode(),
+                        {"Content-Type": "application/json"})
+                wall = (time.perf_counter() - t) * 1e3
+                if code != 200 or b not in k5_inputs:
+                    raise AssertionError(f"pruned /render at S={b}: {code} {body[:300]!r}")
+                frames = check_frames(appb, entry, body, offsets8, f"pruned S={b} /render")
+            appb.close()
+            del appb, entry
+            pruned[b] = {"prune_eps": eps, "planes_kept": pred["planes_kept"],
+                         "mpi_bytes": pred["mpi_bytes"], "predict_ms": predict_ms,
+                         "render_8_wall_ms": wall,
+                         "psnr_vs_fp32_db": psnr_db(frames, fp32["frames"][8])}
+        torch.cuda.synchronize()
+        launches = {"kernels": {k: v - excluded[k] for k, v in kw.launches.items()},
+                    "sizes": tallies.read()}
+    finally:
+        mpi_render.warp_composite = real_composite
+        tallies.close()
+
+    kept = int8["predict"]["planes_kept"]
+    psnr = {n: psnr_db(int8["frames"][n], fp32["frames"][n]) for n in SERVE_RENDERS}
+    emit(info, phase="serve_http_int8", tier="int8", prune_eps=1e-3,
+         warmup_first_dispatches=warm8,
+         mpi_bytes={"int8": int8["predict"]["mpi_bytes"], "fp32": fp32["predict"]["mpi_bytes"],
+                    "ratio": int8["predict"]["mpi_bytes"] / fp32["predict"]["mpi_bytes"]},
+         planes_kept=kept, planes=int8["predict"]["planes"],
+         plane_bucket=int8["plane_bucket"], predict_ms=int8["predict_ms"],
+         predict_spans_ms=int8["predict_spans_ms"], render=int8["render"],
+         concurrent=int8["concurrent"], psnr_int8_vs_fp32_db=psnr,
+         wire_bytes=int8["wire_bytes"])
+    emit(info, phase="serve_http_pruned", tier="int8",
+         plane_contributions=contrib.tolist(), by_plane_bucket=pruned,
+         phase_launches=launches, k5_launches_by_planes=k5_by_planes,
+         check_render_launches_excluded={k: v for k, v in excluded.items() if v})
+
+    # K5 against its plain version at every plane count the phase launched
+    errs = {}
+    for s_planes, ops in sorted(k5_inputs.items()):
+        errs[s_planes] = check_close(f"warp_composite serve_http S={s_planes}",
+                                     kw.warp_composite(*ops),
+                                     kw.warp_composite_matrix_plain(*ops), **TOL)
+    emit(info, phase="kernel_check", kernel="warp_composite", case="serve_http",
+         tolerance=TOL, max_abs_err_by_planes=errs, launches_by_planes=k5_by_planes)
+    if not launches["kernels"]["warp_composite"]:
+        raise AssertionError("serve_http launched no warp_composite")
+    return {"launches": {"serve_http": launches}, "k5_inputs": k5_inputs,
+            "k5_errs": errs, "k5_by_planes": k5_by_planes}
 
 
 def main() -> int:
@@ -1255,9 +1709,12 @@ def main() -> int:
                                  trainer, train_ds)
 
     # 7. training from the datasets' own formats
-    data_launches = data_phases(info, dev, train_state)
+    data_launches, llff_ws = data_phases(info, dev, train_state)
 
-    # 8. timings
+    # 8. serving that workspace over HTTP
+    serve = serve_phases(info, dev, llff_ws, images)
+
+    # 9. timings
     def grid_of(cx, cy, hh, ww):
         return torch.stack([(cx + 0.5) / (0.5 * ww) - 1.0, (cy + 0.5) / (0.5 * hh) - 1.0], -1)
 
@@ -1297,7 +1754,7 @@ def main() -> int:
          shape=list(k1_src.shape), bound_ms=warp_rows["dense"]["bound_ms"],
          median={k: statistics.median(v) for k, v in spread.items()}, runs=spread,
          share_of_bound=warp_rows["dense"]["bound_ms"] / statistics.median(spread["ms"]))
-    paths = {**streaming["launches"], **data_launches}
+    paths = {**streaming["launches"], **data_launches, **serve["launches"]}
 
     def launches_of(name: str, size_class: str) -> dict:
         """The launches of `name` at one TPU size class on each main path: the
@@ -1372,6 +1829,31 @@ def main() -> int:
         bound_ms=k5h_row["bound_ms"], bound_by=k5h_row["bound_by"], library_ms=None,
     ))
     del k5h, k5h_out
+    # K5 at every plane count the HTTP server ran it at (the pruned plane
+    # buckets among them), on the inputs of a real /render at that count
+    for s_planes, ops in sorted(serve["k5_inputs"].items()):
+        out5 = kw.warp_composite(*ops)
+        b_ms, b_by = bound_ms(nbytes(*ops) + nbytes(out5), ops[0][..., 0].numel() * 96)
+        row = dict(
+            shape={"mpi_rgb": list(ops[0].shape), "mpi_sigma": list(ops[1].shape)},
+            ms=time_cuda_ms(lambda: kw.warp_composite(*ops)),
+            plain_ms=time_cuda_ms(lambda: kw.warp_composite_matrix_plain(*ops), reps=5,
+                                  inner=1),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            max_abs_err=serve["k5_errs"][s_planes],
+        )
+        emit(info, phase="timing", kernel="warp_composite", case=f"serve_http S={s_planes}",
+             **row)
+        kernels.append(dict(
+            name=f"warp_composite (serve_http, S={s_planes})", route="cuda",
+            source="mine_tpu_torch/csrc/warp_composite.cu",
+            replaces="mine_tpu/ops/pallas/warp.py:689", shape=row["shape"],
+            launches=serve["k5_by_planes"][s_planes],
+            launches_by_path={"serve_http": serve["k5_by_planes"][s_planes]},
+            max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=None,
+        ))
+        del out5
 
     # the first train step's own scale-0 operands, checked like the others
     k2_cases["train_step_captured"] = (k2_cases["train_scale0"][0][:captured["g"].shape[0]],

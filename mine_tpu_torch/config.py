@@ -1,14 +1,17 @@
 """The configuration the port reads: the `data`, `lr`, `model`, `mpi`,
-`loss`, `training` and `mesh` groups of mine_tpu/config.py's Config and the
-training sentinel's `resilience.*` keys, with the same dot-keys and defaults.
+`loss`, `training`, `mesh` and `serving` groups of mine_tpu/config.py's
+Config, the training sentinel's and the serving stack's `resilience.*` keys
+and `obs.trace_buffer_spans`, with the same dot-keys and defaults.
 
 Config files are the JAX package's flat dot-key YAML (mine_tpu/configs/*.yaml
-are read as data files). Keys of the other groups (obs, serving, parallel,
-the rest of resilience) belong to parts not ported yet and are skipped on
-load; an unknown key inside a ported group is an error, as in the JAX loader.
-Keys the port reads but does not honour yet raise where they would take
-effect (`unsupported_training_options`). `save_config` writes the flat
-dot-key YAML the loader reads (the workspace's params.yaml).
+are read as data files). Keys of the groups not ported (parallel) and the
+other keys of the partly ported groups (obs, resilience) belong to parts not
+ported yet and are skipped on load; an unknown key inside a ported group is
+an error, as in the JAX loader. Keys the port reads but does not honour yet
+raise where they would take effect (`unsupported_training_options`,
+`unsupported_serving_options`). `save_config` writes the flat dot-key YAML
+the loader reads (the workspace's params.yaml), which the JAX loader reads
+too.
 """
 
 from __future__ import annotations
@@ -116,6 +119,62 @@ class ResilienceConfig:
     sentinel_spike_window: int = 32
     sentinel_spike_min_history: int = 5
     max_rollbacks: int = 2
+    # serving admission control (serving/batcher.py, serving/server.py):
+    # the render queue's bound (0 = unbounded), the Retry-After of a 503,
+    # the default per-render deadline
+    serve_max_queue_requests: int = 64
+    serve_retry_after_s: float = 1.0
+    serve_deadline_s: float = 30.0
+    # the engine's circuit breaker (resilience/breaker.py): consecutive
+    # failures that open it (0 disables), the open window, and its seeded
+    # +-fraction jitter
+    breaker_failure_threshold: int = 5
+    breaker_reset_s: float = 30.0
+    breaker_reset_jitter: float = 0.2
+
+
+@dataclass(frozen=True)
+class ObsConfig:
+    # request-lifecycle span ring of the server (obs/trace.py)
+    trace_buffer_spans: int = 4096
+
+
+@dataclass(frozen=True)
+class ServingConfig:
+    # MPI cache tier (serving/compress.py): "fp32", "bf16" or "int8"
+    cache_tier: str = "fp32"
+    # transmittance pruning threshold at predict time; 0 disables
+    prune_transmittance_eps: float = 0.0
+    # read by the JAX package's fleet peer fetch, which the port has not
+    peer_fetch_timeout_s: float = 2.0
+    # the JAX package's SLO tracker, elastic fleet and brownout ladder
+    # (obs/slo.py, serving/autoscale.py, serving/degrade.py): carried so
+    # that both packages read one params.yaml; degrade_enabled: true raises
+    slo_availability_target: float = 0.995
+    slo_p95_ms: float = 2000.0
+    slo_window_s: float = 300.0
+    autoscale_min_replicas: int = 2
+    autoscale_max_replicas: int = 6
+    autoscale_interval_s: float = 10.0
+    autoscale_up_burn_threshold: float = 1.0
+    autoscale_down_burn_threshold: float = 0.25
+    autoscale_up_after: int = 2
+    autoscale_down_after: int = 5
+    autoscale_cooldown_s: float = 60.0
+    autoscale_prewarm_keys: int = 64
+    autoscale_join_timeout_s: float = 30.0
+    autoscale_drain_timeout_s: float = 30.0
+    degrade_enabled: bool = False
+    degrade_queue_high: float = 0.75
+    degrade_queue_low: float = 0.25
+    degrade_burn_high: float = 2.0
+    degrade_burn_low: float = 0.5
+    degrade_engage_after: int = 2
+    degrade_relax_after: int = 3
+    degrade_dwell_s: float = 5.0
+    degrade_max_level: int = 3
+    degrade_coalesce_delay_ms: float = 25.0
+    degrade_scaleup_level: int = 1
 
 
 @dataclass(frozen=True)
@@ -128,6 +187,8 @@ class Config:
     training: TrainingConfig = field(default_factory=TrainingConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)
     resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
+    obs: ObsConfig = field(default_factory=ObsConfig)
+    serving: ServingConfig = field(default_factory=ServingConfig)
 
     def replace(self, **dot_key_values: Any) -> "Config":
         """Functional update by dot-keys: cfg.replace(**{"mpi.num_bins_coarse": 8})."""
@@ -140,6 +201,8 @@ class Config:
 
 
 _GROUPS = {f.name: f.default_factory for f in dataclasses.fields(Config)}
+# groups of which the port has only some keys: the others are skipped on load
+_PARTIAL_GROUPS = frozenset({"resilience", "obs"})
 
 # keys the JAX loader tolerates in archived params.yaml files
 _RETIRED_KEYS = frozenset({
@@ -217,7 +280,7 @@ def load_config(*yaml_paths: str,
         for key, value in layer.items():
             group = key.partition(".")[0]
             if key in _RETIRED_KEYS or group not in _GROUPS \
-                    or (group == "resilience" and key not in flat):
+                    or (group in _PARTIAL_GROUPS and key not in flat):
                 continue
             if key not in flat:
                 raise KeyError(f"unknown config key: {key!r}")
@@ -240,12 +303,22 @@ def unsupported_training_options(cfg: Config) -> list[str]:
     if warm and not warm.endswith(".npz"):
         found.append(f"training.pretrained_checkpoint_path={warm!r}: the port warm-starts "
                      "from a converted .npz; other checkpoint formats wait for ROADMAP "
-                     "queue 1 item 5")
+                     "queue 1 item 7")
     if cfg.mpi.num_bins_fine > 0:
         found.append("mpi.num_bins_fine > 0 waits for ROADMAP queue 1 item 5 "
                      "(coarse-to-fine)")
     mesh = cfg.mesh
     if mesh.data_parallel not in (-1, 1) or mesh.fsdp_parallel > 1 or mesh.plane_parallel > 1:
         found.append(f"mesh sizes {dataclasses.astuple(mesh)} wait for ROADMAP queue 1 "
-                     "item 5 (parallel/)")
+                     "item 6 (parallel/)")
+    return found
+
+
+def unsupported_serving_options(cfg: Config) -> list[str]:
+    """The serving options set away from their defaults that the port does
+    not honour yet, each naming what it waits for in ROADMAP queue 1."""
+    found = []
+    if cfg.serving.degrade_enabled:
+        found.append("serving.degrade_enabled: the brownout ladder (serving/degrade.py) "
+                     "waits for the rest of the serving stack in ROADMAP queue 1")
     return found

@@ -8,8 +8,9 @@
     scene (data/synthetic.py), so every loader runs with nothing
     downloaded.
   * `runner.py`: `check_contract` (batch/geometry/host-slice checks) and
-    `check_loader` (the config through the port's train and evaluate CLIs
-    against its fixture), one JSON verdict per config.
+    `check_loader` (the config through the port's train, evaluate and
+    serving CLIs against its fixture), one JSON verdict per config;
+    `python -m mine_tpu_torch.data.conformance` runs the matrix.
 """
 
 from mine_tpu_torch.data.conformance.contract import (

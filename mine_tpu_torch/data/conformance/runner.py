@@ -13,22 +13,28 @@ Two rungs:
     equality.
   * `check_loader(config)`: the contract checks PLUS the config driven
     through the port's CLIs against its fixture: `python -m
-    mine_tpu_torch.train` (subprocess, tiny-shape overrides) and `python -m
-    mine_tpu_torch.evaluate` over the trained workspace. The JAX runner's
-    third stage, a live HTTP serve round, waits for the port's server.
+    mine_tpu_torch.train` (subprocess, tiny-shape overrides), `python -m
+    mine_tpu_torch.evaluate` over the trained workspace, and `python -m
+    mine_tpu_torch.serving` answering a live /predict -> /render ->
+    /healthz round over HTTP (`serve_stage`).
 
 Each config yields ONE JSON-serializable verdict dict; `run_matrix` sweeps a
-config list and aggregates.
+config list and aggregates. `python -m mine_tpu_torch.data.conformance`
+drives it from the command line (__main__.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import io
 import json
 import os
 import subprocess
 import sys
+import threading
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 
@@ -39,7 +45,7 @@ from mine_tpu_torch.data.conformance.contract import (
 )
 from mine_tpu_torch.data.conformance.fixtures import write_fixture
 
-STAGES = ("contract", "train", "eval")
+STAGES = ("contract", "train", "eval", "serve")
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))))
 
@@ -228,6 +234,95 @@ def _run_cli(argv: list[str], timeout_s: float) -> dict:
     }
 
 
+def _fixture_png() -> bytes:
+    """One analytic-scene view as PNG bytes (the /predict payload)."""
+    from PIL import Image
+
+    from mine_tpu_torch.data.synthetic import _intrinsics, _render_view
+
+    img, _ = _render_view(64, 64, _intrinsics(64, 64), np.zeros(3), phase=0.3)
+    buf = io.BytesIO()
+    Image.fromarray((img * 255).astype(np.uint8)).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def http_request(base: str, path: str, data=None, headers=None, timeout=60):
+    """One HTTP request; (status, body), error statuses included."""
+    req = urllib.request.Request(base + path, data=data, headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as err:
+        return err.code, err.read()
+
+
+def serve_stage(workspace: str, timeout_s: float, device: str | None = None) -> dict:
+    """Start the port's serving CLI over a trained workspace (`--port 0`),
+    drive one predict -> render -> healthz round over HTTP, stop it."""
+    t0 = time.monotonic()
+    device_args = ["--device", device] if device else []
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mine_tpu_torch.serving", "--workspace", workspace,
+         "--port", "0", *device_args],
+        cwd=REPO_ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    url_box: dict[str, str] = {}
+    lines: list[str] = []
+    errors: list[str] = []
+
+    def read_stdout():
+        for line in proc.stdout:  # type: ignore[union-attr]
+            lines.append(line.rstrip())
+            if " on http://" in line:
+                url_box["base"] = line.split(" on ", 1)[1].split()[0]
+
+    def read_stderr():  # drained, so that a chatty server never blocks on the pipe
+        errors.extend(proc.stderr)  # type: ignore[arg-type]
+
+    readers = [threading.Thread(target=fn, daemon=True) for fn in (read_stdout, read_stderr)]
+    for reader in readers:
+        reader.start()
+    try:
+        deadline = time.monotonic() + timeout_s
+        while "base" not in url_box:
+            if proc.poll() is not None or time.monotonic() > deadline:
+                return {"ok": False, "error": "server never bound",
+                        "stdout_tail": "\n".join(lines)[-2000:],
+                        "stderr_tail": "".join(errors)[-2000:],
+                        "seconds": round(time.monotonic() - t0, 1)}
+            time.sleep(0.2)
+        base = url_box["base"]
+        code, body = http_request(base, "/predict", data=_fixture_png(),
+                           headers={"Content-Type": "image/png"}, timeout=timeout_s)
+        if code != 200:
+            raise RuntimeError(f"/predict {code}: {body[:300]!r}")
+        key = json.loads(body)["mpi_key"]
+        code, body = http_request(base, "/render",
+                           data=json.dumps({"mpi_key": key,
+                                            "offsets": [[0.01, 0.0, 0.0]]}).encode(),
+                           headers={"Content-Type": "application/json"}, timeout=timeout_s)
+        if code != 200 or len(json.loads(body)["frames_png_b64"]) != 1:
+            raise RuntimeError(f"/render {code}: {body[:300]!r}")
+        code, body = http_request(base, "/healthz", timeout=30)
+        if code != 200:
+            raise RuntimeError(f"/healthz {code}: {body[:300]!r}")
+        health = json.loads(body)
+        return {"ok": True, "seconds": round(time.monotonic() - t0, 1), "mpi_key": key,
+                "checkpoint_step": health.get("checkpoint_step"),
+                "backend": health.get("backend"), "compiles": health.get("compiles")}
+    except Exception as exc:  # noqa: BLE001 - the verdict carries it
+        return {"ok": False, "error": f"{type(exc).__name__}: {exc}",
+                "stderr_tail": "".join(errors)[-2000:],
+                "seconds": round(time.monotonic() - t0, 1)}
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
 def check_loader(
     config_name: str,
     workdir: str,
@@ -236,9 +331,9 @@ def check_loader(
     device: str | None = None,
 ) -> dict:
     """One config's conformance verdict: contract checks, then train ->
-    eval through the port's CLIs, everything against the fixture under
-    `workdir`. The CLIs run on `device` ("cpu", or the CUDA device when
-    None)."""
+    eval -> serve through the port's CLIs, everything against the fixture
+    under `workdir`. The CLIs run on `device` ("cpu", or the CUDA device
+    when None)."""
     contract = contract_for_config(config_name)
     fixture_root = os.path.join(workdir, "fixtures", contract.family)
     workspace = os.path.join(workdir, "ws_" + config_name)
@@ -285,6 +380,8 @@ def check_loader(
                 result["ok"] = False
                 result["error"] = f"unparseable eval output: {exc}"
         stage_results["eval"] = result
+    if "serve" in stages and stage_results.get("train", {}).get("ok", True):
+        stage_results["serve"] = serve_stage(workspace, timeout_s, device)
 
     verdict["ok"] = bool(stage_results) and all(s.get("ok") for s in stage_results.values())
     return verdict

@@ -192,3 +192,16 @@ class VideoGenerator:
                 disp_u8, os.path.join(output_dir, f"{basename}_{name}_disp.mp4"), fps
             ))
         return written
+
+
+def load_video_generator(workspace: str, image: np.ndarray, fov_deg: float = 90.0,
+                         allow_random_init: bool = False,
+                         device: torch.device | str | None = None) -> VideoGenerator:
+    """A VideoGenerator from a training workspace: the config from its
+    params.yaml, the weights from its newest checkpoint (integrity-checked;
+    the optimizer state is not loaded). With no checkpoint it raises
+    FileNotFoundError unless `allow_random_init`."""
+    from mine_tpu_torch.training.checkpoint import load_for_serving
+
+    cfg, state_dict, _ = load_for_serving(workspace, allow_random_init=allow_random_init)
+    return VideoGenerator(cfg, state_dict, image, fov_deg=fov_deg, device=device)

@@ -21,6 +21,7 @@ from functools import partial
 from typing import Callable, NamedTuple
 
 import torch
+import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from mine_tpu_torch.ops.geometry import (
@@ -134,6 +135,37 @@ def render_src(rgb, sigma, mpi_disparity, k_inv, use_alpha: bool = False,
     weights = transparency_acc * alpha
     rgb_out, depth_out = weighted_sum_src(rgb, mpi_disparity, weights, is_bg_depth_inf)
     return rgb_out, depth_out, transparency_acc, weights
+
+
+def plane_contributions(sigma, mpi_disparity, k_inv, use_alpha: bool = False,
+                        vis_dilate_px: int = 8) -> torch.Tensor:
+    """Per-plane maximum compositing weight, the pruning quantity of the
+    serving cache (serving/compress.py): alpha times the accumulated
+    transmittance, the transmittance first dilated by a (2 vis_dilate_px +
+    1)^2 max window over (H, W) so that a plane hidden at the source pose
+    but revealed by parallax within that radius survives; then the max over
+    batch and pixels. sigma (B, S, H, W, 1); mpi_disparity (B, S); k_inv
+    (B, 3, 3). Returns (S,).
+
+    The transmittance is the compositors' own, +1e-6 cumprod epsilon
+    included. F.max_pool2d pads with -inf, as the JAX package's SAME
+    reduce_window does, so the border takes the max over the in-image part
+    of its window."""
+    h, w = sigma.shape[2], sigma.shape[3]
+    if use_alpha:
+        alpha = sigma
+        transparency = 1.0 - alpha
+    else:
+        transparency = torch.exp(-sigma * _src_dists(mpi_disparity, k_inv, h, w))
+        alpha = 1.0 - transparency
+    transparency_acc = _shifted_exclusive(torch.cumprod(transparency + 1.0e-6, dim=1))
+    if vis_dilate_px > 0:
+        d = 2 * int(vis_dilate_px) + 1
+        # (B, S, H, W, 1) -> (B, S, H, W): the planes ride the channel axis
+        transparency_acc = F.max_pool2d(transparency_acc[..., 0], kernel_size=d, stride=1,
+                                         padding=int(vis_dilate_px))[..., None]
+    weights = transparency_acc * alpha
+    return torch.amax(weights, dim=(0, 2, 3, 4))
 
 
 # -- target pose -----------------------------------------------------------------

@@ -1,23 +1,49 @@
-"""RenderEngine: predict-once / render-many over one set of weights
-(counterpart of the core of mine_tpu/serving/engine.py).
+"""RenderEngine: predict-once / render-many over hot-swappable weights (the
+port's counterpart of mine_tpu/serving/engine.py).
 
   * shape buckets (H, W, S): each holds its intrinsics and fixed plane
     disparities; a predict resizes the image to its bucket;
   * pose-count buckets (powers of two): a render of N poses runs on poses
     padded with identities up to the next bucket and returns the first N
-    frames; N past the largest bucket goes in largest-bucket chunks, so the
-    per-dispatch shapes stay a finite set;
+    frames; N past the largest bucket goes in largest-bucket chunks;
+  * plane-count buckets: a pruned entry (serving/compress.py) renders at the
+    smallest power of two (or the full count) holding its surviving planes,
+    padded in front with inert planes (sigma 0 at the nearest surviving
+    disparity, so alpha is 0; the only deviation is the compositor's +1e-6
+    cumprod epsilon per pad plane);
   * the streaming compositor is the default: each frame is one fused
-    warp-composite launch and no warped plane is ever materialised.
+    warp-composite launch (K5) and no warped plane is ever materialised;
+  * compression tiers and pruning (serving.cache_tier,
+    serving.prune_transmittance_eps), validated at startup; compressed
+    entries dequantize on render;
+  * weight generations: `swap_weights` validates a candidate state dict,
+    loads it into a NEW module, runs one verification predict per warm
+    bucket on it, then flips one reference. The live module is never
+    written to: a predict reads one WeightSet for its whole dispatch, so an
+    in-flight predict finishes on the generation it started on. Peak memory
+    during a swap is two models, small beside the MPI cache.
 
-Weight swap, compression tiers, pruning, degradation, metrics, tracing and
-the HTTP server are not ported yet.
+The JAX engine compiles one executable per bucket ahead of time and counts
+the compiles. Here the first dispatch of each predict bucket and of each
+(plane count, pose count) render bucket is what builds the kernels and warms
+cuDNN and the caching allocator: `compiles` counts those first dispatches,
+under the same name and metric, and `warmup` runs them before traffic (one
+predict per shape bucket, one render per plane and pose bucket).
+
+Thread-safe: HTTP handler threads predict while the batcher's thread
+renders, all on the device's current stream; frames reach the host before
+render returns.
+
+The JAX engine's brownout override of the tier (and with it
+effective_tier / effective_prune_eps: here the tier and threshold are the
+plain `cache_tier` and `prune_eps` attributes), its peer-fetched entry
+adoption and its cost gauges are not ported.
 """
 
 from __future__ import annotations
 
 import threading
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from typing import Any, Mapping
 
 import numpy as np
@@ -30,7 +56,11 @@ from mine_tpu_torch.inference.video import (
     prepare_image,
     render_many,
 )
+from mine_tpu_torch.obs.trace import NULL_TRACER, Tracer
 from mine_tpu_torch.ops.mpi_render import compositor_from_config
+from mine_tpu_torch.serving.cache import MPIEntry
+from mine_tpu_torch.serving.compress import TIERS, CompressedMPI, compress_mpi, decompress
+from mine_tpu_torch.training.checkpoint import CheckpointTreeMismatch, validate_variables_tree
 from mine_tpu_torch.training.step import build_model, make_disparity_list
 from mine_tpu_torch.utils.device import resolve_device
 
@@ -39,28 +69,36 @@ BucketSpec = tuple[int, int, int]  # (H, W, S)
 _IDENTITY_POSE = np.eye(4, dtype=np.float32)
 
 
-@dataclass
-class MPIEntry:
-    """One predicted MPI: everything render-many needs, device-resident
-    (own copy of mine_tpu/serving/cache.py MPIEntry)."""
+class SwapError(RuntimeError):
+    """Base of the named hot-swap failures: the previous generation is
+    still serving."""
 
-    mpi_rgb: Any  # (1, S, H, W, 3)
-    mpi_sigma: Any  # (1, S, H, W, 1)
-    disparity: Any  # (1, S)
-    k: Any  # (1, 3, 3) shared source/target intrinsics
-    bucket: tuple[int, int, int]  # (H, W, S)
-    nbytes: int = field(default=0)
 
-    def __post_init__(self) -> None:
-        if not self.nbytes:
-            self.nbytes = sum(
-                int(a.numel()) * int(a.element_size())
-                for a in (self.mpi_rgb, self.mpi_sigma, self.disparity, self.k)
-            )
+class SwapRejected(SwapError):
+    """The candidate failed validation (state-dict keys, shapes or dtypes)
+    or its verification predict raised."""
+
+
+class SwapInProgress(SwapError):
+    """A swap is already running; swaps never interleave."""
+
+
+@dataclass(frozen=True)
+class WeightSet:
+    """One immutable weight generation: its own eval-mode module on the
+    engine's device, the checkpoint step it came from, and a generation id
+    that rises with every swap. The MPI cache keys on checkpoint_step, so a
+    swap's new predicts mint new keys while entries of the old step stay
+    servable until they age out."""
+
+    model: torch.nn.Module
+    checkpoint_step: int
+    generation: int
 
 
 class _Bucket:
-    """One (H, W, S) shape bucket: its config, intrinsics and disparities."""
+    """One (H, W, S) shape bucket: its config, intrinsics, disparities, plane
+    buckets and which of its dispatches have run once."""
 
     def __init__(self, engine: "RenderEngine", spec: BucketSpec):
         h, w, s = spec
@@ -69,36 +107,62 @@ class _Bucket:
             "data.img_h": h, "data.img_w": w, "mpi.num_bins_coarse": s,
             "mpi.compositor": engine.compositor,
         })
+        self.num_planes = s
         fixed = self.cfg.replace(**{"mpi.fix_disparity": True})
         self.disparity = make_disparity_list(fixed, 1, engine.device)
         self.k = torch.from_numpy(fov_intrinsics(h, w, engine.fov_deg))[None].to(
             engine.device
         )
+        # pruned entries render at powers of two under S, or S itself
+        self.plane_buckets: tuple[int, ...] = tuple(sorted(
+            {s} | {1 << p for p in range(1, s.bit_length()) if (1 << p) < s}
+        ))
+        self.predict_warm = False  # guarded-by: engine._warm_lock
+        self.render_warm: set[tuple[int, int]] = set()  # (n_planes, n_poses)
+
+    def plane_bucket(self, n_planes: int) -> int:
+        """Smallest plane bucket >= n_planes."""
+        for b in self.plane_buckets:
+            if n_planes <= b:
+                return b
+        return self.plane_buckets[-1]
 
 
 class RenderEngine:
-    """Predict-once / render-many. Thread-safe: predict and render may run
-    concurrently (eval-mode network, no autograd state)."""
+    """Predict-once / render-many over one weight generation at a time."""
 
     def __init__(
         self,
         cfg: Config,
         state_dict: Mapping[str, torch.Tensor],
+        checkpoint_step: int = 0,
+        metrics: Any | None = None,
         pose_buckets: tuple[int, ...] = (1, 2, 4, 8, 16, 32, 64),
         fov_deg: float = 90.0,
         compositor: str = "streaming",
         device: torch.device | str | None = None,
+        tracer: Tracer | None = None,
     ):
         if cfg.mpi.num_bins_fine > 0:
             raise NotImplementedError("coarse-to-fine predict is not ported yet")
         self.device = resolve_device(device)
         self.base_cfg = cfg
+        # the tier new predicts land at (a cache-key part) and the pruning
+        # threshold; a bad value fails here, not inside the first predict
+        self.cache_tier = cfg.serving.cache_tier
+        if self.cache_tier not in TIERS:
+            raise ValueError(f"serving.cache_tier={self.cache_tier!r} must be one of {TIERS}")
+        self.prune_eps = float(cfg.serving.prune_transmittance_eps)
+        if not 0.0 <= self.prune_eps < 1.0:
+            # a compositing weight never reaches 1, so eps >= 1 would collapse
+            # every MPI to its single best plane
+            raise ValueError(f"serving.prune_transmittance_eps={self.prune_eps} must be "
+                             "in [0, 1): it thresholds a compositing weight")
         # unknown names fail here, not inside the first render
         compositor_from_config(cfg.replace(**{"mpi.compositor": compositor}))
         self.compositor = compositor
-        self.model = build_model(cfg)
-        self.model.load_state_dict(state_dict)
-        self.model.to(self.device)
+        self.metrics = metrics
+        self.tracer = tracer if tracer is not None else NULL_TRACER
         self.pose_buckets = tuple(sorted({int(n) for n in pose_buckets}))
         if not self.pose_buckets or self.pose_buckets[0] < 1:
             raise ValueError(f"bad pose_buckets {pose_buckets}")
@@ -106,8 +170,84 @@ class RenderEngine:
         self.default_bucket: BucketSpec = (
             cfg.data.img_h, cfg.data.img_w, cfg.mpi.num_bins_coarse
         )
+        self._weights = WeightSet(self._place(state_dict), int(checkpoint_step), 0)
+        self._swap_lock = threading.Lock()  # serializes swaps; predict never takes it
+        self.compiles = 0  # first dispatches (also in metrics); guarded-by: _warm_lock
+        self._warm_lock = threading.Lock()
         self._buckets: dict[BucketSpec, _Bucket] = {}  # guarded-by: _buckets_lock
         self._buckets_lock = threading.Lock()
+
+    # -- weight generations ----------------------------------------------------
+
+    @property
+    def model(self) -> torch.nn.Module:
+        """The serving generation's module."""
+        return self._weights.model
+
+    @property
+    def checkpoint_step(self) -> int:
+        return self._weights.checkpoint_step
+
+    @property
+    def generation(self) -> int:
+        return self._weights.generation
+
+    def weights(self) -> WeightSet:
+        """One consistent (model, checkpoint_step, generation) snapshot. A
+        caller that keys a cache entry AND dispatches a predict reads this
+        once and uses it for both, so the two cannot straddle a swap."""
+        return self._weights
+
+    def _place(self, state_dict: Mapping[str, torch.Tensor]) -> torch.nn.Module:
+        """A fresh eval-mode module holding `state_dict`, on the device."""
+        model = build_model(self.base_cfg)
+        model.load_state_dict(state_dict)
+        return model.to(self.device)
+
+    def swap_weights(self, state_dict: Mapping[str, torch.Tensor], checkpoint_step: int,
+                     verify: bool = True) -> WeightSet:
+        """Hot-swap to a new weight generation; returns the new WeightSet.
+
+        Validate (the candidate's keys, shapes and dtypes against the
+        serving module's: SwapRejected), place (a new module; the serving
+        one is untouched), verify (one predict of a zeros image per warm
+        bucket on the new module: a candidate that cannot run fails here,
+        on the swap's thread, as SwapRejected), then flip one reference.
+        In-flight predicts keep their snapshot; the old module is freed
+        when the last of them drops it. Raises SwapInProgress when another
+        swap holds the lock."""
+        if not self._swap_lock.acquire(blocking=False):
+            raise SwapInProgress("a weight swap is already in progress")
+        try:
+            serving = self._weights
+            try:
+                validate_variables_tree(
+                    serving.model.state_dict(), state_dict,
+                    context=f"swap candidate (step {checkpoint_step}) vs serving "
+                            f"generation {serving.generation}",
+                )
+            except CheckpointTreeMismatch as exc:
+                raise SwapRejected(str(exc)) from exc
+            model = self._place(state_dict)
+            if verify:
+                for spec in self.bucket_specs():
+                    h, w, _ = spec
+                    try:
+                        with torch.no_grad():
+                            self._dispatch_predict(self.bucket(spec), np.zeros(
+                                (h, w, 3), np.float32), model)
+                    except Exception as exc:  # noqa: BLE001 - named rollback
+                        raise SwapRejected(f"verification predict failed on bucket {spec}: "
+                                           f"{type(exc).__name__}: {exc}") from exc
+            new = WeightSet(model, int(checkpoint_step), serving.generation + 1)
+            self._weights = new  # the atomic flip
+            if self.metrics is not None:
+                self.metrics.weight_generation.set(new.generation)
+            return new
+        finally:
+            self._swap_lock.release()
+
+    # -- buckets ---------------------------------------------------------------
 
     def bucket(self, spec: BucketSpec | None = None) -> _Bucket:
         spec = self.default_bucket if spec is None else tuple(map(int, spec))
@@ -125,45 +265,169 @@ class RenderEngine:
                 b = self._buckets[spec] = _Bucket(self, spec)
             return b
 
+    def bucket_specs(self) -> list[BucketSpec]:
+        with self._buckets_lock:
+            return list(self._buckets)
+
     def _pose_bucket(self, n: int) -> int:
         for b in self.pose_buckets:
             if n <= b:
                 return b
         return self.pose_buckets[-1]
 
-    def predict(self, image: np.ndarray, spec: BucketSpec | None = None) -> MPIEntry:
-        """Run the encoder-decoder once. image: (h, w, 3) uint8 or float in
-        [0, 1] at any resolution, resized to the bucket's (H, W)."""
-        bucket = self.bucket(spec)
+    def _first_dispatch(self, bucket: _Bucket, kind: str, key: tuple[int, int] | None) -> None:
+        """Count the first dispatch of a predict bucket (key None) or a
+        (n_planes, n_poses) render bucket, once."""
+        with self._warm_lock:
+            if key is None:
+                if bucket.predict_warm:
+                    return
+                bucket.predict_warm = True
+            else:
+                if key in bucket.render_warm:
+                    return
+                bucket.render_warm.add(key)
+            self.compiles += 1
+        if self.metrics is not None:
+            self.metrics.engine_compiles.inc(kind=kind)
+
+    # -- the two halves --------------------------------------------------------
+
+    def _dispatch_predict(self, bucket: _Bucket, image: np.ndarray, model: torch.nn.Module):
+        """One network pass + blending on an explicit module; (mpi_rgb,
+        mpi_sigma). Shared by live predicts, warmup and the swap's verify."""
         h, w, _ = bucket.spec
         img = prepare_image(image, h, w, self.device)
-        mpi_rgb, mpi_sigma = predict_blended_mpi(
-            bucket.cfg, self.model, img, bucket.disparity, bucket.k
-        )
-        return MPIEntry(mpi_rgb, mpi_sigma, bucket.disparity, bucket.k, bucket.spec)
+        out = predict_blended_mpi(bucket.cfg, model, img, bucket.disparity, bucket.k)
+        self._first_dispatch(bucket, "predict", None)
+        return out
 
-    def render(self, entry: MPIEntry, poses: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-        """Render (N, 4, 4) G_tgt_src poses against a predicted MPI. Returns
+    @torch.no_grad()
+    def predict(self, image: np.ndarray, spec: BucketSpec | None = None,
+                request_id: str | None = None, weights: WeightSet | None = None,
+                tier: str | None = None,
+                prune_eps: float | None = None) -> MPIEntry | CompressedMPI:
+        """Run the encoder-decoder once; returns the device-resident cache
+        value at the tier: a plain MPIEntry at fp32 with pruning off (or
+        nothing pruned), a CompressedMPI otherwise.
+
+        image: (h, w, 3) uint8 or float in [0, 1] at any resolution, resized
+        to the bucket's (H, W). weights: an explicit snapshot
+        (engine.weights()), so that the caller's cache key and this
+        dispatch are one generation; tier/prune_eps likewise (default: the
+        engine's knobs)."""
+        ws = weights if weights is not None else self._weights
+        bucket = self.bucket(spec)
+        with self.tracer.span("engine_predict", cat="serve", bucket=str(bucket.spec),
+                              request_id=request_id):
+            mpi_rgb, mpi_sigma = self._dispatch_predict(bucket, image, ws.model)
+            entry = compress_mpi(
+                mpi_rgb, mpi_sigma, bucket.disparity, bucket.k, bucket.spec,
+                tier=self.cache_tier if tier is None else tier,
+                prune_eps=self.prune_eps if prune_eps is None else prune_eps,
+                use_alpha=bucket.cfg.mpi.use_alpha,
+            )
+        if self.metrics is not None:
+            self.metrics.encoder_invocations.inc()
+            if isinstance(entry, CompressedMPI) and entry.planes_kept < entry.num_planes_full:
+                self.metrics.pruned_planes.inc(entry.num_planes_full - entry.planes_kept)
+        return entry
+
+    def _render_inputs(self, bucket: _Bucket, entry: MPIEntry | CompressedMPI):
+        """Cache value -> (rgb, sigma, disparity, k, n_planes) fp32 render
+        inputs. Compressed entries dequantize here, and their surviving
+        planes are padded in front up to a plane bucket with sigma-0 planes
+        at the nearest surviving disparity (alpha exactly 0)."""
+        if not isinstance(entry, CompressedMPI):
+            return (entry.mpi_rgb, entry.mpi_sigma, entry.disparity, entry.k,
+                    entry.mpi_rgb.shape[1])
+        rgb, sigma, disparity, k = decompress(entry)
+        kept = entry.planes_kept
+        n_planes = bucket.plane_bucket(kept)
+        if kept < n_planes:
+            pad = n_planes - kept
+            _, _, h, w, _ = rgb.shape
+            rgb = torch.cat([rgb.new_zeros((1, pad, h, w, 3)), rgb], dim=1)
+            sigma = torch.cat([sigma.new_zeros((1, pad, h, w, 1)), sigma], dim=1)
+            disparity = torch.cat([disparity[:, :1].expand(1, pad), disparity], dim=1)
+        return rgb, sigma, disparity, k, n_planes
+
+    def _dispatch_render(self, bucket: _Bucket, rgb, sigma, disparity, k,
+                         padded: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
+        out = render_many(bucket.cfg, rgb, sigma, disparity, k,
+                          torch.from_numpy(padded).to(self.device))
+        self._first_dispatch(bucket, "render", (int(rgb.shape[1]), padded.shape[0]))
+        return out
+
+    def render(self, entry: MPIEntry | CompressedMPI,
+               poses: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """Render (N, 4, 4) G_tgt_src poses against a cached MPI. Returns
         host arrays (rgb (N, H, W, 3) in [0, 1], disparity (N, H, W, 1))."""
         poses = np.asarray(poses, np.float32)
         if poses.ndim != 3 or poses.shape[1:] != (4, 4):
             raise ValueError(f"poses must be (N, 4, 4), got {poses.shape}")
         n = poses.shape[0]
         h, w, _ = entry.bucket
-        bucket = self.bucket(entry.bucket)
-        max_b = self.pose_buckets[-1]
         # each chunk's frames are copied straight into these: one copy to the
         # host per frame, and no second host buffer to fault in and fill
         rgb_out = np.empty((n, h, w, 3), np.float32)
         disp_out = np.empty((n, h, w, 1), np.float32)
+        if n == 0:
+            return rgb_out, disp_out
+        bucket = self.bucket(entry.bucket)
+        rgb_in, sigma_in, disparity, k, _ = self._render_inputs(bucket, entry)
+        max_b = self.pose_buckets[-1]
         for start in range(0, n, max_b):
             chunk = poses[start:start + max_b]
-            k = chunk.shape[0]
-            pad = np.broadcast_to(_IDENTITY_POSE, (self._pose_bucket(k) - k, 4, 4))
-            rgb, disp = render_many(
-                bucket.cfg, entry.mpi_rgb, entry.mpi_sigma, entry.disparity, entry.k,
-                torch.from_numpy(np.concatenate([chunk, pad])).to(self.device),
-            )
-            torch.from_numpy(rgb_out[start:start + k]).copy_(rgb[:k])
-            torch.from_numpy(disp_out[start:start + k]).copy_(disp[:k])
+            m = chunk.shape[0]
+            pad = np.broadcast_to(_IDENTITY_POSE, (self._pose_bucket(m) - m, 4, 4))
+            rgb, disp = self._dispatch_render(bucket, rgb_in, sigma_in, disparity, k,
+                                              np.concatenate([chunk, pad]))
+            torch.from_numpy(rgb_out[start:start + m]).copy_(rgb[:m])
+            torch.from_numpy(disp_out[start:start + m]).copy_(disp[:m])
+        if self.metrics is not None:
+            self.metrics.rendered_frames.inc(n)
+            self.metrics.renders_per_sec.record(n)
         return rgb_out, disp_out
+
+    # -- pre-warming -----------------------------------------------------------
+
+    @torch.no_grad()
+    def warmup(self, specs: list[BucketSpec] | None = None,
+               pose_counts: tuple[int, ...] | None = None) -> int:
+        """Run the first dispatches before traffic: per shape bucket one
+        predict (of a zeros image) and one render (of a zeros MPI) per plane
+        bucket (every one with pruning on, else the full count) and pose
+        bucket. Returns how many first dispatches this call made; after
+        it, `compiles` stays flat through traffic on these buckets."""
+        before = self.compiles
+        for spec in (specs if specs is not None else [self.default_bucket]):
+            bucket = self.bucket(spec)
+            h, w, s = bucket.spec
+            if not bucket.predict_warm:
+                self._dispatch_predict(bucket, np.zeros((h, w, 3), np.float32), self.model)
+            plane_counts = bucket.plane_buckets if self.prune_eps else (s,)
+            for n_poses in sorted({self._pose_bucket(n) for n in (
+                    pose_counts if pose_counts is not None else self.pose_buckets)}):
+                poses = np.broadcast_to(_IDENTITY_POSE, (n_poses, 4, 4)).copy()
+                for n_planes in plane_counts:
+                    if (n_planes, n_poses) in bucket.render_warm:
+                        continue
+                    zeros = torch.zeros((1, n_planes, h, w, 4), device=self.device)
+                    self._dispatch_render(bucket, zeros[..., :3].contiguous(),
+                                          zeros[..., 3:].contiguous(),
+                                          bucket.disparity[:, :n_planes], bucket.k, poses)
+        return self.compiles - before
+
+    def warm_pool(self) -> dict[str, dict]:
+        """Per bucket: whether its predict ran once, and which (n_planes,
+        n_poses) renders did (surfaced on /healthz)."""
+        out: dict[str, dict] = {}
+        for spec in self.bucket_specs():
+            bucket = self.bucket(spec)
+            with self._warm_lock:
+                out["x".join(str(v) for v in spec)] = {
+                    "predict": bucket.predict_warm,
+                    "render": sorted(bucket.render_warm),
+                }
+        return out

@@ -18,6 +18,10 @@ Beside the checkpoints, as in the JAX package:
   * integrity/<step>.json, a sha256 manifest of the step directory written
     after the commit; loading re-hashes it and raises CheckpointCorrupt on a
     mismatch (a checkpoint without a sidecar verifies vacuously).
+
+For serving, `load_for_serving` restores the config and the model's state
+dict alone, and `validate_variables_tree` holds a candidate state dict to
+the serving one's leaf names, shapes and dtypes (CheckpointTreeMismatch).
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ from typing import Any
 import torch
 
 from mine_tpu_torch.config import Config, load_config, save_config
+
+StateDict = dict[str, torch.Tensor]
 
 STATE_FILE = "state.pt"
 
@@ -211,3 +217,85 @@ def verify_checkpoint_integrity(workspace: str, step: int) -> None:
         problems.append("manifest sha256 mismatch")
     if problems:
         raise CheckpointCorrupt(f"checkpoint step {step} under {workspace}", problems)
+
+
+# -- serving: the model's state dict alone -----------------------------------------
+
+
+class CheckpointTreeMismatch(ValueError):
+    """A state dict does not carry the leaf names, shapes and dtypes its
+    consumer expects; the first mismatched leaves are named."""
+
+    def __init__(self, context: str, problems: list[str]):
+        self.problems = problems
+        shown = "; ".join(problems[:5])
+        more = f" (+{len(problems) - 5} more)" if len(problems) > 5 else ""
+        super().__init__(f"{context}: {shown}{more}")
+
+
+def _signature(state: dict[str, Any]) -> dict[str, tuple]:
+    return {name: (tuple(t.shape), str(t.dtype)) for name, t in state.items()}
+
+
+def validate_variables_tree(expected: dict[str, Any], got: dict[str, Any],
+                            context: str = "restored checkpoint") -> None:
+    """Raise CheckpointTreeMismatch unless `got` has exactly the keys of
+    `expected` with the same shapes and dtypes. Only `.shape` and `.dtype`
+    are read: the layout is the contract, the values are not inspected."""
+    want, have = _signature(expected), _signature(got)
+    problems = [f"missing leaf {n} {want[n][0]}" for n in sorted(set(want) - set(have))]
+    problems += [f"unexpected leaf {n} {have[n][0]}" for n in sorted(set(have) - set(want))]
+    problems += [f"leaf {n}: expected {want[n][0]}/{want[n][1]}, got {have[n][0]}/{have[n][1]}"
+                 for n in sorted(set(want) & set(have)) if want[n] != have[n]]
+    if problems:
+        raise CheckpointTreeMismatch(context, problems)
+
+
+def load_for_serving(workspace: str, overrides: dict | str | None = None,
+                     allow_random_init: bool = False,
+                     expected_state: dict[str, Any] | None = None,
+                     step: int | None = None) -> tuple[Config, StateDict, int]:
+    """Restore (cfg, model state dict, step) for inference and serving.
+
+    The step directory is verified against its integrity sidecar before
+    anything of it is parsed (CheckpointCorrupt). The file is then mapped,
+    not read: only the tensors of its "model" entry are touched, so the
+    optimizer's moments never reach host memory in full, nor the device.
+
+    `step` restores that retained step instead of the newest (an absent one
+    raises FileNotFoundError listing the retained steps). With no checkpoint
+    at all, `allow_random_init` gives the seeded initial weights and step 0
+    (smoke runs only); otherwise FileNotFoundError. `expected_state` (a
+    state dict of tensors or of anything with .shape and .dtype) turns on
+    validate_variables_tree: a mismatch raises CheckpointTreeMismatch here,
+    not inside a later load_state_dict.
+    """
+    cfg = load_paired_config(workspace, overrides)
+    retained = all_steps(workspace)
+    if step is not None:
+        if int(step) not in retained:
+            raise FileNotFoundError(f"checkpoint step {step} not retained under "
+                                    f"{checkpoint_path(workspace)} (retained: {retained})")
+        step = int(step)
+    else:
+        step = retained[-1] if retained else None
+    if step is None:
+        if not allow_random_init:
+            raise FileNotFoundError(f"no checkpoint found under {checkpoint_path(workspace)} "
+                                    "(pass allow_random_init=True for an untrained smoke run)")
+        from mine_tpu_torch.models.mpi import init_weights
+        from mine_tpu_torch.training.step import build_model
+
+        model = init_weights(build_model(cfg), torch.Generator().manual_seed(0))
+        return cfg, model.state_dict(), 0
+    verify_checkpoint_integrity(workspace, step)
+    path = os.path.join(checkpoint_path(workspace), str(step), STATE_FILE)
+    raw = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+    if not isinstance(raw, dict) or not isinstance(raw.get("model"), dict):
+        raise CheckpointTreeMismatch(f"checkpoint step {step} under {workspace}",
+                                     ["no 'model' state dict in " + STATE_FILE])
+    state = dict(raw["model"])
+    if expected_state is not None:
+        validate_variables_tree(expected_state, state,
+                                context=f"checkpoint step {step} under {workspace}")
+    return cfg, state, step

@@ -207,15 +207,19 @@ def test_infer_cli_writes_videos(weights, tmp_path):
 def test_config_files_load_as_in_jax(name):
     """The shipped YAMLs, read as data files, give the port every key and
     value the JAX loader gives in the groups the port copies whole (data, lr,
-    model, mpi, loss, training, mesh), and the training sentinel's
-    resilience keys."""
+    model, mpi, loss, training, mesh, serving), the training sentinel's and
+    the serving stack's resilience keys, and the server's span ring size."""
     paths = [os.path.join(CONFIGS_DIR, "default.yaml"), os.path.join(CONFIGS_DIR, f"{name}.yaml")]
     got = to_flat_dict(load_config(*paths))
-    sentinel_keys = {"resilience.sentinel_policy", "resilience.sentinel_spike_factor",
-                     "resilience.sentinel_spike_window", "resilience.sentinel_spike_min_history",
-                     "resilience.max_rollbacks"}
+    partial_keys = {"resilience.sentinel_policy", "resilience.sentinel_spike_factor",
+                    "resilience.sentinel_spike_window", "resilience.sentinel_spike_min_history",
+                    "resilience.max_rollbacks", "resilience.serve_max_queue_requests",
+                    "resilience.serve_retry_after_s", "resilience.serve_deadline_s",
+                    "resilience.breaker_failure_threshold", "resilience.breaker_reset_s",
+                    "resilience.breaker_reset_jitter", "obs.trace_buffer_spans"}
     want = {k: v for k, v in jax_flat_dict(jax_load_config(*paths)).items()
-            if k.split(".")[0] in ("data", "lr", "model", "mpi", "loss", "training", "mesh")
-            or k in sentinel_keys}
+            if k.split(".")[0] in ("data", "lr", "model", "mpi", "loss", "training", "mesh",
+                                   "serving")
+            or k in partial_keys}
     assert got == want
 
