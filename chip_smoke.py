@@ -66,7 +66,15 @@ From the root of a checkout, on a machine with a CUDA device and nvcc:
      new step's key) and a shape-mismatched one refused with 422; the same
      round at the int8 tier with pruning (bytes, planes kept, plane bucket,
      PSNR against fp32); K5 held against its plain version at every plane
-     count the phase launched;
+     count the phase launched; then a fleet of that workspace
+     (serve_fleet_phase): in-process replicas behind the router, affinity
+     and routed answers byte-equal to the owner's, the router's overhead,
+     peer fetch at fp32 and int8 when an arc moves off a draining owner
+     (the adopted entry on the card, rendering the old owner's frames), the
+     swap fan-out, the brownout ladder under a flood and walked L0-L3-L0,
+     and an autoscale join and drain over replica processes of the serving
+     CLI, under client traffic with no 5xx; K5 held on the adopted and the
+     L1-degraded entries;
   9. times every kernel (CUDA events), its plain version and, for the warp
      and its backward, torch's grid_sample, beside each kernel's memory
      bound (the backward also on the captured training operands; the
@@ -1309,6 +1317,544 @@ def serve_phases(info, dev, ws: str, images: list[np.ndarray]) -> dict:
             "k5_errs": errs, "k5_by_planes": k5_by_planes}
 
 
+# the fleet phase: images shown to the router, client threads of the flood
+FLEET_IMAGES, FLOOD_CLIENTS, FLOOD_ROUNDS = 6, 24, 3
+
+
+def serve_fleet_phase(info, dev, ws: str, image: np.ndarray) -> dict:
+    """The serving fleet over the data_llff workspace at full width:
+    in-process replicas (ServingApp behind make_server, peers configured)
+    behind a FleetApp router on the loopback. Affinity: /predict of
+    FLEET_IMAGES images lands on the ring owner that the router and the
+    replicas agree on, and a routed /render is byte-identical to the owner's
+    direct answer (router overhead: routed minus direct, alternated). Peer
+    fetch, at fp32 and at cache_tier int8: a replica joins, a /render of a
+    key whose arc moved answers 404, the client's /predict makes the new
+    owner adopt the old owner's entry over /mpi/<key>, and the next /render
+    is served by the new owner through K5 with the old owner's frames.
+    Swap fan-out through the router. The brownout ladder on the replica that
+    runs it: a flood of concurrent /render clients, then a walk L0 -> L3 ->
+    L0 with pressure samples (at L1 an int8, pruned /predict and its
+    announced /render; at L3 the widened window). Autoscale over
+    SubprocessPool replicas of the serving CLI: a join with pre-warm and a
+    drain with handoff under client traffic, no 5xx. K5 is held against its
+    plain version on the adopted entries and the L1 entry (a served MPI, a
+    moved pose). The counts are the in-process replicas' own launches:
+    warm-ups and traffic, not the check calls."""
+    import contextlib
+    import io
+    import urllib.error
+    import urllib.request
+
+    from PIL import Image
+
+    from mine_tpu_torch.obs.slo import _exposition_children, burn_rates_from_exposition
+    from mine_tpu_torch.ops import mpi_render
+    from mine_tpu_torch.ops.kernels import warp as kw
+    from mine_tpu_torch.serving.autoscale import AutoscaleController, SubprocessPool
+    from mine_tpu_torch.serving.cache import MPIEntry, key_from_str
+    from mine_tpu_torch.serving.degrade import PressureSample
+    from mine_tpu_torch.serving.fleet import FleetApp, HashRing, make_fleet_server
+    from mine_tpu_torch.serving.server import ServingApp, make_server
+    from mine_tpu_torch.training import checkpoint as ckpt
+    from mine_tpu_torch.training.step import build_model
+
+    t_phase = time.perf_counter()
+
+    def http(base: str, path: str, data=None, headers=None, timeout=300):
+        req = urllib.request.Request(base + path, data=data, headers=headers or {})
+        try:
+            with urllib.request.urlopen(req, timeout=timeout) as resp:
+                return resp.status, dict(resp.headers), resp.read()
+        except urllib.error.HTTPError as err:
+            return err.code, dict(err.headers), err.read()
+
+    def png_of(img: np.ndarray) -> bytes:
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, format="PNG")
+        return buf.getvalue()
+
+    def digest(data: bytes) -> str:
+        import hashlib
+
+        return hashlib.sha256(data).hexdigest()
+
+    def render_body(key: str, n: int, shift: float = 0.0) -> bytes:
+        return json.dumps({"mpi_key": key, "offsets": [
+            [0.03 + shift, 0.02 * math.sin(i), 0.04 * i / n] for i in range(n)]}).encode()
+
+    JSON = {"Content-Type": "application/json"}
+    PNG = {"Content-Type": "image/png"}
+
+    # K5's launches by plane count, and the inputs of the last launch inside
+    # a recorded block; the check calls are left out of every count
+    k5 = {"by_planes": {}, "counting": True, "recording": None}
+    excluded = dict.fromkeys(kw.launches, 0)
+    real_composite = mpi_render.warp_composite
+
+    def tally(*ops):
+        before = kw.launches["warp_composite"]
+        out = real_composite(*ops)
+        if kw.launches["warp_composite"] > before:
+            if k5["counting"]:
+                k5["by_planes"][ops[0].shape[1]] = k5["by_planes"].get(ops[0].shape[1], 0) + 1
+            if k5["recording"] is not None:
+                k5["recording"]["ops"] = ops
+        return out
+
+    @contextlib.contextmanager
+    def uncounted():
+        before = dict(kw.launches)
+        k5["counting"] = False
+        try:
+            yield
+        finally:
+            k5["counting"] = True
+            for name in excluded:
+                excluded[name] += kw.launches[name] - before[name]
+
+    @contextlib.contextmanager
+    def recorded(into: dict, name: str):
+        k5["recording"] = seen = {}
+        try:
+            yield
+        finally:
+            k5["recording"] = None
+        if "ops" not in seen:
+            raise AssertionError(f"{name}: no K5 launch to hold")
+        into[name] = tuple(t.clone() for t in seen["ops"])
+
+    held: dict[str, tuple] = {}
+    servers: list = []
+
+    def serve(app, make=make_server) -> str:
+        srv = make(app, "127.0.0.1", 0)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        servers.append(srv)
+        return "http://%s:%d" % srv.server_address[:2]
+
+    # the newest step whose tree fits the model (serve_http left a
+    # shape-mismatched one on top), and a perturbed copy as the swap target
+    expected = build_model(ckpt.load_paired_config(ws)).state_dict()
+    for step in reversed(ckpt.all_steps(ws)):
+        try:
+            cfg, state, step = ckpt.load_for_serving(ws, step=step, expected_state=expected)
+            break
+        except ckpt.CheckpointTreeMismatch:
+            continue
+    else:
+        raise AssertionError(f"no servable step under {ws}")
+    gen = torch.Generator().manual_seed(11)
+    swap_step = max(ckpt.all_steps(ws)) + 1
+    ckpt.save(ws, {"model": {k: (v + 1e-3 * torch.randn(v.shape, generator=gen)
+                                 if v.dim() == 4 else v) for k, v in state.items()}},
+              swap_step)
+
+    # candidate images; the shown ones are chosen so that arcs do move
+    rng = np.random.default_rng(17)
+    pngs = [png_of(np.clip(image.astype(np.int16) + rng.integers(-12, 13, image.shape),
+                           0, 255).astype(np.uint8)) for _ in range(24)]
+    ring3 = HashRing(["r0", "r1", "r2"])
+    moving = [p for p in pngs if ring3.candidates(digest(p))[0] == "r2"]
+    if not moving:
+        raise AssertionError("no candidate image lands on the third replica")
+    shown = [moving[0]] + [p for p in pngs if p is not moving[0]][:FLEET_IMAGES - 1]
+    int8_png, fresh = [p for p in pngs if p not in shown][-2:]
+
+    def replica(cfg_r, name: str) -> tuple[ServingApp, str]:
+        app = ServingApp(cfg_r, state, checkpoint_step=step, swap_source=ws, device=dev)
+        if app.engine.device.type != dev.type:
+            raise AssertionError(f"replica {name} on {app.engine.device}")
+        app.engine.warmup(pose_counts=(1, 8))
+        return app, serve(app)
+
+    def adopt_after_move(apps: dict, urls: dict, router: FleetApp, data: bytes,
+                         label: str) -> dict:
+        """A key's arc moves away from its owner, which stays up: the owner
+        drains (POST /admin/drain; /mpi/<key> stays served) and two probes
+        take it out of the router's ring. A routed /render then answers 404
+        from the next candidate, the client's /predict makes that new owner
+        adopt the entry over /mpi/<key>, and its /render (K5) gives the old
+        owner's frames."""
+        base = router_base[label]
+        code, hdrs, body = http(base, "/predict", data, PNG)
+        old_owner = hdrs.get("X-Mine-Replica")
+        key = json.loads(body)["mpi_key"]
+        code_o, _, old_frames = http(urls[old_owner], "/render", render_body(key, 8), JSON)
+        if code != 200 or code_o != 200:
+            raise AssertionError(f"{label}: /predict {code}, owner's /render {code_o}")
+        http(urls[old_owner], "/admin/drain", json.dumps({"draining": True}).encode(), JSON)
+        for _ in range(2):
+            router.probe_once()
+        new_owner = router.candidates_for(digest(data))[0].name
+        code_404, hdrs_404, _ = http(base, "/render", render_body(key, 1), JSON)
+        hits0 = apps[new_owner].metrics.peer_fetch.value(outcome="hit")
+        t = time.perf_counter()
+        code, hdrs, body = http(base, "/predict", data, PNG)
+        fetch_ms = (time.perf_counter() - t) * 1e3
+        got = json.loads(body)
+        hits = apps[new_owner].metrics.peer_fetch.value(outcome="hit") - hits0
+        entry = apps[new_owner].cache.get(key_from_str(key), record=False)
+        fields = ([entry.mpi_rgb, entry.mpi_sigma] if isinstance(entry, MPIEntry)
+                  else [entry.rgb, entry.sigma])
+        if old_owner in router.ring_members() or code_404 != 404 \
+                or hdrs_404.get("X-Mine-Replica") != new_owner or code != 200 \
+                or hdrs.get("X-Mine-Replica") != new_owner or not got["cached"] or hits != 1 \
+                or got["mpi_key"] != key or any(t.device.type != dev.type for t in fields):
+            raise AssertionError(f"{label} peer fetch: ring {router.ring_members()}, render "
+                                 f"{code_404}, predict {code} at {hdrs.get('X-Mine-Replica')}, "
+                                 f"{got}, hits {hits}, on {[t.device.type for t in fields]}")
+        with recorded(held, f"adopted_{label}"):
+            code, hdrs, routed = http(base, "/render", render_body(key, 8), JSON)
+        if code != 200 or hdrs.get("X-Mine-Replica") != new_owner \
+                or json.loads(routed)["frames_png_b64"] != json.loads(old_frames)[
+                    "frames_png_b64"]:
+            raise AssertionError(f"{label}: the adopted entry's frames differ from the old "
+                                 f"owner's ({code} at {hdrs.get('X-Mine-Replica')})")
+        http(urls[old_owner], "/admin/drain", json.dumps({"draining": False}).encode(), JSON)
+        for _ in range(2):
+            router.probe_once()
+        if old_owner not in router.ring_members():
+            raise AssertionError(f"{label}: {old_owner} did not rejoin the ring")
+        return {"peer_fetches": hits, "predict_with_peer_fetch_ms": fetch_ms,
+                "old_owner": old_owner, "new_owner": new_owner, "render_before_adopt": code_404,
+                "entry": type(entry).__name__, "mpi_bytes": entry.nbytes,
+                "frames_equal_old_owner": True}
+
+    torch.cuda.synchronize()
+    kw.reset_launches()
+    mpi_render.warp_composite = tally
+    tallies = SizeTally(kw)
+    router_base: dict[str, str] = {}
+    apps: dict[str, ServingApp] = {}
+    routers: list[FleetApp] = []
+    try:
+        # 1. two replicas behind the router; the third runs the ladder
+        t = time.perf_counter()
+        urls = {}
+        for name in ("r0", "r1"):
+            apps[name], urls[name] = replica(cfg, name)
+        for name, app in apps.items():
+            app.configure_peers(urls, name)
+        router = FleetApp(urls, probe_interval_s=3600)
+        routers.append(router)
+        router_base["fp32"] = serve(router, make_fleet_server)
+        build_s = time.perf_counter() - t
+
+        # 2. affinity: owner = the router's ring = every replica's ring
+        affinity, keys, predict_ms = [], {}, []
+        for data in shown[1:]:
+            t = time.perf_counter()
+            code, hdrs, body = http(router_base["fp32"], "/predict", data, PNG)
+            predict_ms.append((time.perf_counter() - t) * 1e3)
+            owner = router.candidates_for(digest(data))[0].name
+            peer_owners = {app._peer_ring.candidates(digest(data))[0] for app in apps.values()}
+            key = json.loads(body)["mpi_key"]
+            holders = [n for n, a in apps.items() if a.cache.get(key_from_str(key),
+                                                                  record=False) is not None]
+            if code != 200 or hdrs.get("X-Mine-Replica") != owner or peer_owners != {owner} \
+                    or holders != [owner]:
+                raise AssertionError(f"affinity: {code} at {hdrs.get('X-Mine-Replica')}, "
+                                     f"ring owner {owner}, peers {peer_owners}, held by "
+                                     f"{holders}")
+            keys[key] = owner
+            code, _, routed = http(router_base["fp32"], "/render", render_body(key, 1), JSON)
+            code_d, _, direct = http(urls[owner], "/render", render_body(key, 1), JSON)
+            if code != 200 or code_d != 200 or routed != direct:
+                raise AssertionError(f"routed /render of {key[:12]} is not the owner's bytes")
+            affinity.append(owner)
+        # router overhead: the same request routed and direct, alternated
+        key, owner = next(iter(keys.items()))
+        overhead = {}
+        for label, path, data, headers, reps in (
+                ("predict_hit", "/predict", shown[1], PNG, 7),
+                ("render_8", "/render", render_body(key, 8), JSON, 3)):
+            times = {"routed": [], "direct": []}
+            for _ in range(reps):
+                for side, base in (("routed", router_base["fp32"]), ("direct", urls[owner])):
+                    t = time.perf_counter()
+                    code, _, _ = http(base, path, data, headers)
+                    times[side].append((time.perf_counter() - t) * 1e3)
+                    if code != 200:
+                        raise AssertionError(f"overhead {label} {side}: {code}")
+            med = {k: statistics.median(v) for k, v in times.items()}
+            overhead[label] = {**med, "router_minus_direct_ms": med["routed"] - med["direct"],
+                               "runs_ms": times}
+
+        # 3. a third replica (it runs the ladder) joins the ring; a key of
+        # the arc it took moves on when it drains, and is adopted at fp32
+        cfg_l = cfg.replace(**{"serving.degrade_enabled": True,
+                               "resilience.serve_max_queue_requests": 8})
+        apps["r2"], urls["r2"] = replica(cfg_l, "r2")
+        for name, app in apps.items():
+            app.configure_peers(urls, name)
+        router.add_replica("r2", urls["r2"])
+        peer = {"fp32": adopt_after_move(apps, urls, router, shown[0], "fp32")}
+        if peer["fp32"]["old_owner"] != "r2":
+            raise AssertionError(f"the moved key was not on the joiner: {peer['fp32']}")
+
+        # ... and at cache_tier int8, in a ring of two int8 replicas
+        cfg8 = cfg.replace(**{"serving.cache_tier": "int8"})
+        apps8, urls8 = {}, {}
+        for name in ("r0", "r1"):
+            apps8[name], urls8[name] = replica(cfg8, f"{name} int8")
+        for name, app in apps8.items():
+            app.configure_peers(urls8, name)
+        router8 = FleetApp(urls8, probe_interval_s=3600)
+        routers.append(router8)
+        router_base["int8"] = serve(router8, make_fleet_server)
+        peer["int8"] = adopt_after_move(apps8, urls8, router8, int8_png, "int8")
+        for app in apps8.values():
+            app.close()
+        del apps8
+        torch.cuda.empty_cache()
+
+        # 4. swap fan-out through the router
+        t = time.perf_counter()
+        code, _, body = http(router_base["fp32"], "/admin/swap", json.dumps(
+            {"wait": True}).encode(), JSON)
+        swap_s = time.perf_counter() - t
+        swapped = json.loads(body)["replicas"]
+        if code != 200 or set(swapped) != set(apps) or any(
+                r.get("state") != "ok" or r.get("checkpoint_step") != swap_step
+                for r in swapped.values()) or {a.engine.checkpoint_step
+                                               for a in apps.values()} != {swap_step}:
+            raise AssertionError(f"swap fan-out: {code} {swapped}")
+
+        # 5. brownout on r2: a flood of concurrent renders, then the walk
+        ladder_app, ladder_url = apps["r2"], urls["r2"]
+        flood_keys = []
+        for data in (shown[0], shown[1]):
+            code, _, body = http(ladder_url, "/predict", data, PNG)
+            flood_keys.append(json.loads(body)["mpi_key"])
+        barrier = threading.Barrier(FLOOD_CLIENTS)
+        flood_codes, flood_errors = [], []
+
+        def flood_client(i):
+            try:
+                for r in range(FLOOD_ROUNDS):
+                    barrier.wait(timeout=300)
+                    code, hdrs, _ = http(ladder_url, "/render", render_body(
+                        flood_keys[i % 2], 1, 0.001 * (i + r)), JSON)
+                    flood_codes.append((code, hdrs.get("X-Degraded")))
+            except Exception as exc:  # noqa: BLE001 - reported below, the others freed
+                flood_errors.append(f"{type(exc).__name__}: {exc}")
+                barrier.abort()
+
+        t = time.perf_counter()
+        workers = [threading.Thread(target=flood_client, args=(i,))
+                   for i in range(FLOOD_CLIENTS)]
+        for wkr in workers:
+            wkr.start()
+        for wkr in workers:
+            wkr.join(timeout=600)
+        flood_s = time.perf_counter() - t
+        if flood_errors or any(wkr.is_alive() for wkr in workers) \
+                or {c for c, _ in flood_codes} - {200, 503}:
+            raise AssertionError(f"flood: {flood_errors}, codes {sorted(set(flood_codes))}")
+        flood_levels = sorted({lvl for _, lvl in ladder_app.degrade.transitions()})
+        flood = {"clients": FLOOD_CLIENTS, "rounds": FLOOD_ROUNDS, "seconds": flood_s,
+                 "codes": {str(c): [x for x, _ in flood_codes].count(c) for c in (200, 503)},
+                 "announced_200s": sum(1 for c, h in flood_codes if c == 200 and h),
+                 "levels_reached": flood_levels, "queue_bound": 8,
+                 "queue_high": cfg_l.serving.degrade_queue_high}
+        ctl = ladder_app.degrade
+        normal_delay = ladder_app._normal_delay_s
+        ctl.relax_after, ctl.dwell_s = 1, 0.0
+        while ctl.level > 0:
+            ctl.tick(PressureSample())
+        ctl.relax_after = 10 ** 6  # the walk up: no request relaxes it
+        walk_from = len(ctl.transitions())
+        breach = PressureSample(queue_frac=1.0)
+        walk = {}
+        for level in (1, 2, 3):
+            while ctl.level < level:
+                ctl.tick(breach)
+            if level == 1:
+                code, hdrs, body = http(ladder_url, "/predict", fresh, PNG)
+                pred = json.loads(body)
+                with recorded(held, "l1_degraded"):
+                    code_r, hdrs_r, _ = http(ladder_url, "/render",
+                                             render_body(pred["mpi_key"], 8), JSON)
+                entry = ladder_app.cache.get(key_from_str(pred["mpi_key"]), record=False)
+                want = "level=1;tier=int8"
+                if code != 200 or code_r != 200 or pred["tier"] != "int8" \
+                        or hdrs.get("X-Degraded") != want or hdrs_r.get("X-Degraded") != want \
+                        or entry.rgb.device.type != dev.type:
+                    raise AssertionError(f"L1: predict {code} {pred} {hdrs.get('X-Degraded')}, "
+                                         f"render {code_r} {hdrs_r.get('X-Degraded')}")
+                walk["l1"] = {"predict": pred, "x_degraded": want,
+                              "plane_bucket": ladder_app.engine.bucket(entry.bucket)
+                              .plane_bucket(entry.planes_kept)}
+            if level == 3 and ladder_app.batcher.max_delay_s != \
+                    cfg_l.serving.degrade_coalesce_delay_ms / 1e3:
+                raise AssertionError(f"L3 window {ladder_app.batcher.max_delay_s}")
+        walk["l3_window_ms"] = ladder_app.batcher.max_delay_s * 1e3
+        ctl.relax_after = 1
+        while ctl.level > 0:
+            ctl.tick(PressureSample())
+        steps = [lvl for _, lvl in ctl.transitions()[walk_from - 1:]]
+        walk.update(levels=steps, l0_window_ms=ladder_app.batcher.max_delay_s * 1e3)
+        code, _, replica_page = http(ladder_url, "/metrics")
+        code_f, _, router_page = http(router_base["fp32"], "/metrics")
+        slo = {"replica": burn_rates_from_exposition(replica_page.decode()),
+               "router": burn_rates_from_exposition(router_page.decode())}
+        if steps != [0, 1, 2, 3, 2, 1, 0] or ladder_app.batcher.max_delay_s != normal_delay \
+                or code != 200 or code_f != 200 \
+                or any(set(v) != {"availability", "latency_p95"} for v in slo.values()):
+            raise AssertionError(f"walk {steps}, window {ladder_app.batcher.max_delay_s}, "
+                                 f"slo {slo}")
+        requests = {name: int(sum(v for labels, v in
+                                  app.metrics.requests.labeled_values().items()
+                                  if dict(labels).get("endpoint") in ("predict", "render")))
+                    for name, app in apps.items()}
+        routed = {dict(k)["replica"]: int(v)
+                  for k, v in router.metrics.routed.labeled_values().items()}
+        torch.cuda.synchronize()
+        launches = {"kernels": {k: v - excluded[k] for k, v in kw.launches.items()},
+                    "sizes": tallies.read()}
+    finally:
+        mpi_render.warp_composite = real_composite
+        tallies.close()
+        for srv in servers:
+            srv.shutdown()
+            srv.server_close()
+        for r in routers:
+            r.close()
+        for app in apps.values():
+            app.close()
+    del apps
+    torch.cuda.empty_cache()
+
+    # K5 on the adopted and degraded entries' inputs, against its plain version;
+    # each input named by its sums, and where its largest disagreement lies
+    errs, held_at = {}, {}
+    with uncounted():
+        for name, ops in held.items():
+            eye = torch.eye(3, device=ops[2].device)
+            if ops[1].abs().max().item() == 0.0 or (ops[2] - eye).abs().max().item() < 1e-4:
+                raise AssertionError(f"K5's {name} inputs are an empty MPI or an identity pose")
+            got, want = kw.warp_composite(*ops), kw.warp_composite_matrix_plain(*ops)
+            errs[name] = check_close(f"warp_composite {name}", got, want, **TOL)
+            at = np.unravel_index(int((got - want).abs().argmax()), tuple(got.shape))
+            held_at[name] = {"mpi_rgb_sum": float(ops[0].double().sum()),
+                             "mpi_sigma_sum": float(ops[1].double().sum()),
+                             "max_err_at_nchw": [int(v) for v in at],
+                             "value_there": float(want[tuple(int(v) for v in at)])}
+    if not max(errs.values()) > 0.0:
+        raise AssertionError(f"K5 equals its plain version bit for bit on every held input "
+                             f"({errs}): the check cannot tell them apart")
+    if not launches["kernels"]["warp_composite"]:
+        raise AssertionError("serve_fleet launched no warp_composite")
+
+    # 6. autoscale over replica processes of the serving CLI, under traffic
+    t = time.perf_counter()
+    pool = SubprocessPool(ws, server_args=["--no-warmup", "--device", dev.type],
+                          spawn_timeout_s=600.0, request_timeout_s=120.0)
+    fleet_srv = fleet = ctl = None
+    try:
+        s0, s0_url = pool.spawn()
+        spawn_s = time.perf_counter() - t
+        pool.configure_peers(pool.urls())
+        fleet = FleetApp(pool.urls(), probe_interval_s=3600, deadline_s=300.0)
+        base = serve(fleet, make_fleet_server)
+        fleet_srv = servers[-1]
+        ctl = AutoscaleController(fleet, pool, scrape=f"{base}/metrics", min_replicas=1,
+                                  max_replicas=2, up_after=10 ** 6, down_after=10 ** 6,
+                                  cooldown_s=0.0, join_timeout_s=300.0, drain_timeout_s=300.0)
+        ring_as = HashRing(["s0", "s1"])
+        as_pngs = [p for p in pngs if ring_as.candidates(digest(p))[0] == "s1"][:2] \
+            + [p for p in pngs if ring_as.candidates(digest(p))[0] == "s0"][:2]
+        as_keys = {}
+        for i, data in enumerate(as_pngs):
+            code, _, body = http(base, "/predict", data, PNG)
+            if code != 200:
+                raise AssertionError(f"autoscale /predict {code}: {body[:200]!r}")
+            as_keys[i] = json.loads(body)["mpi_key"]
+        code, _, body = http(s0_url, "/healthz")
+        if code != 200 or json.loads(body)["backend"] != dev.type:
+            raise AssertionError(f"replica process s0: {code} {body[:200]!r}")
+
+        def traffic(stop: threading.Event, codes: list):
+            while not stop.is_set():
+                for i, key in as_keys.items():
+                    code, _, _ = http(base, "/render", render_body(key, 1), JSON)
+                    codes.append(code)
+                    if code == 404:  # the client contract: predict again
+                        code, _, body = http(base, "/predict", as_pngs[i], PNG)
+                        codes.append(code)
+
+        def scale_under_traffic(n: int) -> tuple[float, list]:
+            stop, codes = threading.Event(), []
+            client = threading.Thread(target=traffic, args=(stop, codes))
+            client.start()
+            t0 = time.perf_counter()
+            try:
+                got = ctl.scale_to(n)
+            finally:
+                seconds = time.perf_counter() - t0
+                stop.set()
+                client.join(timeout=300)
+            if got != n or client.is_alive() or not codes or any(c >= 500 for c in codes):
+                raise AssertionError(f"scale_to({n}) -> {got}, client codes {codes}")
+            return seconds, codes
+
+        def metric(url: str, family: str, **labels) -> float:
+            _, _, page = http(url, "/metrics")
+            want = {k: str(v) for k, v in labels.items()}
+            return sum(v for lab, v in _exposition_children(page.decode(), family)
+                       if all(lab.get(k) == x for k, x in want.items()))
+
+        join_s, join_codes = scale_under_traffic(2)
+        s1_url = pool.urls()["s1"]
+        prewarmed = metric(s1_url, "mine_serve_prewarm_keys_total", outcome="fetched")
+        if prewarmed < 1 or fleet.ring_members() != ["s0", "s1"]:
+            raise AssertionError(f"join: prewarmed {prewarmed}, ring {fleet.ring_members()}")
+        s0_before = {o: metric(s0_url, "mine_serve_prewarm_keys_total", outcome=o)
+                     for o in ("fetched", "resident")}
+        drain_s, drain_codes = scale_under_traffic(1)
+        handed = {o: metric(s0_url, "mine_serve_prewarm_keys_total", outcome=o) - s0_before[o]
+                  for o in ("fetched", "resident")}
+        events = {f"{d}_{o}": fleet.metrics.autoscale_events.value(direction=d, outcome=o)
+                  for d in ("join", "drain") for o in ("ok", "aborted", "handoff_aborted")}
+        if fleet.ring_members() != ["s0"] or pool.names() != ["s0"] \
+                or events["join_ok"] != 1 or events["drain_ok"] != 1 or sum(handed.values()) < 1:
+            raise AssertionError(f"drain: ring {fleet.ring_members()}, pool {pool.names()}, "
+                                 f"events {events}, handed off {handed}")
+        autoscale = {
+            "replica_command": "python -m mine_tpu_torch.serving --workspace <ws> --port 0 "
+                               f"--no-warmup --device {dev.type}",
+            "first_spawn_s": spawn_s, "join_s": join_s, "prewarmed_keys": prewarmed,
+            "drain_s": drain_s, "handed_off_keys": handed, "events": events,
+            "client_codes": {"join": {str(c): join_codes.count(c) for c in set(join_codes)},
+                             "drain": {str(c): drain_codes.count(c)
+                                       for c in set(drain_codes)}},
+        }
+    finally:
+        if ctl is not None:
+            ctl.close()
+        if fleet_srv is not None:
+            fleet_srv.shutdown()
+            fleet_srv.server_close()
+        if fleet is not None:
+            fleet.close()
+        pool.close()
+
+    emit(info, phase="serve_fleet",
+         config="default.yaml (llff, resnet50, 384x512, S=32, bf16), data_llff workspace",
+         workspace_step=step, swap_step=swap_step, replicas_build_s=build_s,
+         requests_by_replica=requests, routed_by_replica=routed,
+         affinity={"owners": affinity, "routed_render_bytes_equal_owner": True},
+         predict_miss_through_router_ms=predict_ms, router_overhead_ms=overhead,
+         peer_fetch=peer, swap_fanout={"seconds": swap_s, "replicas": len(swapped)},
+         brownout={"flood": flood, "walk": walk, "slo_burn_rates": slo},
+         autoscale=autoscale, k5_launches_by_planes=k5["by_planes"],
+         k5_max_abs_err=errs, k5_held_inputs=held_at, tolerance=TOL, phase_launches=launches,
+         check_launches_excluded={k: v for k, v in excluded.items() if v},
+         phase_s=time.perf_counter() - t_phase)
+    return {"launches": {"serve_fleet": launches}, "k5_errs": errs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a "
@@ -1711,8 +2257,9 @@ def main() -> int:
     # 7. training from the datasets' own formats
     data_launches, llff_ws = data_phases(info, dev, train_state)
 
-    # 8. serving that workspace over HTTP
+    # 8. serving that workspace over HTTP, then a fleet of it
     serve = serve_phases(info, dev, llff_ws, images)
+    fleet = serve_fleet_phase(info, dev, llff_ws, images[0])
 
     # 9. timings
     def grid_of(cx, cy, hh, ww):
@@ -1754,7 +2301,8 @@ def main() -> int:
          shape=list(k1_src.shape), bound_ms=warp_rows["dense"]["bound_ms"],
          median={k: statistics.median(v) for k, v in spread.items()}, runs=spread,
          share_of_bound=warp_rows["dense"]["bound_ms"] / statistics.median(spread["ms"]))
-    paths = {**streaming["launches"], **data_launches, **serve["launches"]}
+    paths = {**streaming["launches"], **data_launches, **serve["launches"],
+             **fleet["launches"]}
 
     def launches_of(name: str, size_class: str) -> dict:
         """The launches of `name` at one TPU size class on each main path: the

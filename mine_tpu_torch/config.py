@@ -8,8 +8,8 @@ are read as data files). Keys of the groups not ported (parallel) and the
 other keys of the partly ported groups (obs, resilience) belong to parts not
 ported yet and are skipped on load; an unknown key inside a ported group is
 an error, as in the JAX loader. Keys the port reads but does not honour yet
-raise where they would take effect (`unsupported_training_options`,
-`unsupported_serving_options`). `save_config` writes the flat dot-key YAML
+raise where they would take effect (`unsupported_training_options`, and the
+serving engine's coarse-to-fine check). `save_config` writes the flat dot-key YAML
 the loader reads (the workspace's params.yaml), which the JAX loader reads
 too.
 """
@@ -145,11 +145,10 @@ class ServingConfig:
     cache_tier: str = "fp32"
     # transmittance pruning threshold at predict time; 0 disables
     prune_transmittance_eps: float = 0.0
-    # read by the JAX package's fleet peer fetch, which the port has not
+    # the budget of one peer fetch (owner and failover together)
     peer_fetch_timeout_s: float = 2.0
-    # the JAX package's SLO tracker, elastic fleet and brownout ladder
-    # (obs/slo.py, serving/autoscale.py, serving/degrade.py): carried so
-    # that both packages read one params.yaml; degrade_enabled: true raises
+    # the SLO tracker, the elastic fleet and the brownout ladder
+    # (obs/slo.py, serving/autoscale.py, serving/degrade.py)
     slo_availability_target: float = 0.995
     slo_p95_ms: float = 2000.0
     slo_window_s: float = 300.0
@@ -311,14 +310,4 @@ def unsupported_training_options(cfg: Config) -> list[str]:
     if mesh.data_parallel not in (-1, 1) or mesh.fsdp_parallel > 1 or mesh.plane_parallel > 1:
         found.append(f"mesh sizes {dataclasses.astuple(mesh)} wait for ROADMAP queue 1 "
                      "item 6 (parallel/)")
-    return found
-
-
-def unsupported_serving_options(cfg: Config) -> list[str]:
-    """The serving options set away from their defaults that the port does
-    not honour yet, each naming what it waits for in ROADMAP queue 1."""
-    found = []
-    if cfg.serving.degrade_enabled:
-        found.append("serving.degrade_enabled: the brownout ladder (serving/degrade.py) "
-                     "waits for the rest of the serving stack in ROADMAP queue 1")
     return found

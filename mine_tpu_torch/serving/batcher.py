@@ -1,6 +1,5 @@
 """Micro-batching queue: coalesce concurrent renders of one MPI (the port's
-own copy of mine_tpu/serving/batcher.py, without the brownout ladder's
-live-retargeted window).
+own copy of mine_tpu/serving/batcher.py).
 
 Rendering 8 poses in one dispatch costs less than 8 dispatches of 1 (one
 pose-bucketed render, one host copy per frame, no per-call set-up). When
@@ -21,6 +20,11 @@ optional monotonic `deadline`, and a request still pending past it fails
 with DeadlineExceeded (HTTP 504) before dispatch, so no device time goes to
 frames whose client gave up. `stop()` fails stranded requests with
 BatcherStopped (HTTP 503).
+
+The brownout ladder (serving/degrade.py) reads `queue_frac` as its pressure
+signal and retargets the window with `set_max_delay_s`. A group waiting in
+its window re-reads the window on every wake-up, so a widening reaches the
+current queue (the JAX batcher fixes a group's deadline when it seeds it).
 """
 
 from __future__ import annotations
@@ -211,6 +215,21 @@ class MicroBatcher:
         with self._cond:
             return len(self._pending)
 
+    def queue_frac(self) -> float:
+        """Queue depth over its admission bound, the degradation ladder's
+        pressure signal; 0.0 when the queue is unbounded."""
+        if not self.max_queue_requests:
+            return 0.0
+        return self.queue_depth() / self.max_queue_requests
+
+    def set_max_delay_s(self, delay_s: float) -> None:
+        """Retarget the coalescing window live (brownout L3 widens it, a
+        lower level restores it), for the group waiting now as well as
+        later ones: the worker is woken to re-read it."""
+        with self._cond:
+            self.max_delay_s = max(0.0, float(delay_s))
+            self._cond.notify_all()
+
     # -- worker --------------------------------------------------------------
 
     def _gauge_locked(self) -> None:
@@ -250,7 +269,6 @@ class MicroBatcher:
                     break
                 group = [seed]
                 n_poses = seed.poses.shape[0]
-                deadline = seed.enqueued_at + self.max_delay_s
                 while True:
                     # sweep pending for the seed's key, preserving order of
                     # everything not absorbed; a candidate only joins if the
@@ -270,7 +288,9 @@ class MicroBatcher:
                         else:
                             kept.append(cand)
                     self._pending = kept
-                    remaining = deadline - time.monotonic()
+                    # the window is read anew on every wake-up: a
+                    # set_max_delay_s while this group waits applies to it
+                    remaining = seed.enqueued_at + self.max_delay_s - time.monotonic()
                     if (n_poses >= self.max_batch_poses or remaining <= 0
                             or self._stop):
                         break

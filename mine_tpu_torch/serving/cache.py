@@ -115,6 +115,34 @@ class MPICache:
         with self._lock:
             return list(self._entries)
 
+    def hot_keys(self, n: int) -> list[tuple[str, int]]:
+        """The up-to-n most recently used entries as (wire key, nbytes),
+        hottest first: the reverse of eviction order, so a pre-warm that
+        fetches the list front to back moves first what eviction would take
+        last (the autoscale join and drain, GET /debug/hot_keys)."""
+        if n <= 0:
+            return []
+        out: list[tuple[str, int]] = []
+        with self._lock:
+            for key in reversed(self._entries):
+                out.append((key_to_str(key), int(self._entries[key].nbytes)))
+                if len(out) >= n:
+                    break
+        return out
+
+    def stale_key(self, key: CacheKey) -> CacheKey | None:
+        """Stale-while-revalidate (serving/degrade.py L2): the resident key
+        of the same scene and shape bucket, at any tier, with the newest
+        checkpoint step older than `key`'s; None when there is none."""
+        digest, step, h, w, s, _ = key
+        best: CacheKey | None = None
+        with self._lock:
+            for cand in self._entries:
+                if (cand[0] == digest and cand[2:5] == (h, w, s) and cand[1] < step
+                        and (best is None or cand[1] > best[1])):
+                    best = cand
+        return best
+
     def get(self, key: CacheKey, record: bool = True) -> Any | None:
         """Lookup + LRU touch. record=False skips the hit/miss counters, for
         internal re-checks (the predict singleflight's under-lock peek) that

@@ -34,14 +34,19 @@ Thread-safe: HTTP handler threads predict while the batcher's thread
 renders, all on the device's current stream; frames reach the host before
 render returns.
 
-The JAX engine's brownout override of the tier (and with it
-effective_tier / effective_prune_eps: here the tier and threshold are the
-plain `cache_tier` and `prune_eps` attributes), its peer-fetched entry
-adoption and its cost gauges are not ported.
+The brownout ladder's L1 (serving/degrade.py) overrides the tier and the
+pruning threshold of new predicts (`set_degraded_compression`); a caller
+reads `effective_tier` / `effective_prune_eps` once and passes both into
+`predict`, so a key and its entry never straddle a level flip. An entry
+fetched off a peer's wire (compress.py from_wire, CPU tensors) is checked
+against its bucket and placed on the engine's device by `_adopt_entry`, so
+its render dequantizes and composites there. The JAX engine's cost gauges
+wait for obs/cost.py.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 from dataclasses import dataclass
 from typing import Any, Mapping
@@ -158,6 +163,9 @@ class RenderEngine:
             # every MPI to its single best plane
             raise ValueError(f"serving.prune_transmittance_eps={self.prune_eps} must be "
                              "in [0, 1): it thresholds a compositing weight")
+        # the brownout override (None: the configured operating point)
+        self._degraded_tier: str | None = None
+        self._degraded_prune_eps = 0.0
         # unknown names fail here, not inside the first render
         compositor_from_config(cfg.replace(**{"mpi.compositor": compositor}))
         self.compositor = compositor
@@ -247,6 +255,32 @@ class RenderEngine:
         finally:
             self._swap_lock.release()
 
+    # -- the degraded compression override (serving/degrade.py L1) ------------
+
+    def set_degraded_compression(self, tier: str, prune_eps: float) -> None:
+        """New predicts land at `tier` with at least `prune_eps` pruning (the
+        configured threshold still applies where it is stricter). Cached
+        entries stay as they are: the tier is part of their keys."""
+        if tier not in TIERS:
+            raise ValueError(f"degraded tier {tier!r} must be one of {TIERS}")
+        if not 0.0 <= float(prune_eps) < 1.0:
+            raise ValueError(f"degraded prune_eps={prune_eps} must be in [0, 1)")
+        self._degraded_prune_eps = float(prune_eps)
+        self._degraded_tier = tier
+
+    def clear_degraded_compression(self) -> None:
+        self._degraded_tier = None
+        self._degraded_prune_eps = 0.0
+
+    def effective_tier(self) -> str:
+        """The tier new predicts land at now (a cache-key part)."""
+        return self._degraded_tier or self.cache_tier
+
+    def effective_prune_eps(self) -> float:
+        if self._degraded_tier is None:
+            return self.prune_eps
+        return max(self.prune_eps, self._degraded_prune_eps)
+
     # -- buckets ---------------------------------------------------------------
 
     def bucket(self, spec: BucketSpec | None = None) -> _Bucket:
@@ -295,12 +329,14 @@ class RenderEngine:
 
     def _dispatch_predict(self, bucket: _Bucket, image: np.ndarray, model: torch.nn.Module):
         """One network pass + blending on an explicit module; (mpi_rgb,
-        mpi_sigma). Shared by live predicts, warmup and the swap's verify."""
+        mpi_sigma, disparity). Shared by live predicts, warmup and the
+        swap's verify."""
         h, w, _ = bucket.spec
         img = prepare_image(image, h, w, self.device)
-        out = predict_blended_mpi(bucket.cfg, model, img, bucket.disparity, bucket.k)
+        mpi_rgb, mpi_sigma = predict_blended_mpi(bucket.cfg, model, img, bucket.disparity,
+                                                 bucket.k)
         self._first_dispatch(bucket, "predict", None)
-        return out
+        return mpi_rgb, mpi_sigma, bucket.disparity
 
     @torch.no_grad()
     def predict(self, image: np.ndarray, spec: BucketSpec | None = None,
@@ -315,16 +351,16 @@ class RenderEngine:
         to the bucket's (H, W). weights: an explicit snapshot
         (engine.weights()), so that the caller's cache key and this
         dispatch are one generation; tier/prune_eps likewise (default: the
-        engine's knobs)."""
+        effective operating point at call time)."""
         ws = weights if weights is not None else self._weights
         bucket = self.bucket(spec)
         with self.tracer.span("engine_predict", cat="serve", bucket=str(bucket.spec),
                               request_id=request_id):
-            mpi_rgb, mpi_sigma = self._dispatch_predict(bucket, image, ws.model)
+            mpi_rgb, mpi_sigma, disparity = self._dispatch_predict(bucket, image, ws.model)
             entry = compress_mpi(
-                mpi_rgb, mpi_sigma, bucket.disparity, bucket.k, bucket.spec,
-                tier=self.cache_tier if tier is None else tier,
-                prune_eps=self.prune_eps if prune_eps is None else prune_eps,
+                mpi_rgb, mpi_sigma, disparity, bucket.k, bucket.spec,
+                tier=self.effective_tier() if tier is None else tier,
+                prune_eps=self.effective_prune_eps() if prune_eps is None else prune_eps,
                 use_alpha=bucket.cfg.mpi.use_alpha,
             )
         if self.metrics is not None:
@@ -332,6 +368,38 @@ class RenderEngine:
             if isinstance(entry, CompressedMPI) and entry.planes_kept < entry.num_planes_full:
                 self.metrics.pruned_planes.inc(entry.num_planes_full - entry.planes_kept)
         return entry
+
+    def _adopt_entry(self, entry: MPIEntry | CompressedMPI,
+                     request_id: str | None = None) -> MPIEntry | CompressedMPI:
+        """A cache value from a peer's wire (CPU tensors), checked against
+        its bucket and placed on the engine's device: its renders then
+        dequantize and composite there. A value that does not fit its
+        bucket raises ValueError. nbytes is unchanged (it counts the
+        representation, not where it lives)."""
+        h, w, s = (int(v) for v in entry.bucket)
+        if isinstance(entry, CompressedMPI):
+            arrays, tier = entry._arrays(), entry.tier
+            kept, full = entry.planes_kept, entry.num_planes_full
+        else:
+            arrays, tier = {"rgb": entry.mpi_rgb, "sigma": entry.mpi_sigma,
+                            "disparity": entry.disparity, "k": entry.k}, "fp32"
+            kept = full = int(entry.disparity.shape[-1])
+        slab = {"fp32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[tier]
+        want = {"rgb": ((1, kept, h, w, 3), slab), "sigma": ((1, kept, h, w, 1), slab),
+                "disparity": ((1, kept), torch.float32), "k": ((1, 3, 3), torch.float32)}
+        bad = {name: (tuple(arrays[name].shape), str(arrays[name].dtype))
+               for name, spec in want.items()
+               if (tuple(arrays[name].shape), arrays[name].dtype) != spec}
+        if bad or full != s or not 1 <= kept <= full:
+            raise ValueError(f"a {tier} entry for bucket {(h, w, s)} ({kept} of {full} "
+                             f"planes) has fields {bad or 'that fit'}")
+        with self.tracer.span("adopt_entry", cat="serve", request_id=request_id):
+            placed = {name: None if a is None else a.to(self.device).contiguous()
+                      for name, a in arrays.items()}
+        if isinstance(entry, CompressedMPI):
+            return dataclasses.replace(entry, **placed)
+        return MPIEntry(placed["rgb"], placed["sigma"], placed["disparity"], placed["k"],
+                        entry.bucket, nbytes=entry.nbytes)
 
     def _render_inputs(self, bucket: _Bucket, entry: MPIEntry | CompressedMPI):
         """Cache value -> (rgb, sigma, disparity, k, n_planes) fp32 render

@@ -2,13 +2,9 @@
 port's own copy of mine_tpu/serving/metrics.py, with the same
 `mine_serve_*` family names).
 
-Left out with the parts that feed them, rather than exported as gauges that
+Left out with the part that feeds them, rather than exported as gauges that
 stay at 0: the cost families (`mine_serve_step_flops`, `mine_serve_mfu`,
-`mine_serve_achieved_tflops_per_sec`, which wait for obs/cost.py), the
-brownout ladder's (`mine_serve_degradation_level`,
-`mine_serve_degradation_responses_total`), drain's (`mine_serve_draining`)
-and the fleet wire's (`mine_fleet_peer_fetch_total`,
-`mine_serve_prewarm_keys_total`).
+`mine_serve_achieved_tflops_per_sec`), which wait for obs/cost.py.
 """
 
 from __future__ import annotations
@@ -87,6 +83,12 @@ class ServingMetrics:
             "requests rejected before any work, by reason "
             "(queue_full|breaker_open|draining)",
         )
+        self.draining = r.gauge(
+            "mine_serve_draining",
+            "1 while this replica is in the drain shedding state "
+            "(/admin/drain: product POSTs answer 503 + Retry-After, the "
+            "peer-fetch wire stays served for the arc handoff), else 0",
+        )
         self.request_timeouts = r.counter(
             "mine_serve_request_timeouts_total",
             "requests that hit their deadline, by stage (queue = expired "
@@ -96,6 +98,20 @@ class ServingMetrics:
         self.breaker_state = r.gauge(
             "mine_serve_breaker_state",
             "circuit breaker state: 0 closed, 1 half-open, 2 open",
+        )
+        # brownout degradation ladder (serving/degrade.py): fidelity traded
+        # for availability before any shed; degraded answers are 200s
+        self.degradation_level = r.gauge(
+            "mine_serve_degradation_level",
+            "brownout ladder level: 0 normal, 1 int8+pruned predicts, "
+            "2 stale-while-revalidate, 3 widened coalescing (the 503 "
+            "shed only fires past 3)",
+        )
+        self.degradation_responses = r.counter(
+            "mine_serve_degradation_responses_total",
+            "product responses served while the brownout ladder was "
+            "engaged, by level; every one also carried an X-Degraded "
+            "header announcing its level and effective tier",
         )
         self.breaker_trips = r.counter(
             "mine_serve_breaker_trips_total",
@@ -176,6 +192,25 @@ class ServingMetrics:
             "planes dropped from cached MPIs by transmittance pruning "
             "(serving.prune_transmittance_eps): cache bytes and render work "
             "that no longer exist",
+        )
+
+        # fleet peer fetch (serving/server.py _peer_fetch): on a local miss
+        # a replica asks the ring's owner for the compressed MPI before
+        # running the encoder; mine_fleet_* because it is fleet-wire traffic
+        self.peer_fetch = r.counter(
+            "mine_fleet_peer_fetch_total",
+            "peer MPI fetch attempts by outcome (hit = adopted a peer's "
+            "cached MPI, zero local encoder cost; miss = owner answered "
+            "404; incompatible = the peer runs a different pruning "
+            "operating point, config drift surfaced; timeout/error = "
+            "degraded to a local re-predict)",
+        )
+        # autoscale pre-warm and drain handoff (serving/server.py prewarm)
+        self.prewarm_keys = r.counter(
+            "mine_serve_prewarm_keys_total",
+            "pre-warm/handoff key outcomes (fetched = adopted over the "
+            "wire; resident = already cached here; miss = no source had "
+            "it; error = fetch/adopt failed, skipped)",
         )
 
         # MPI cache

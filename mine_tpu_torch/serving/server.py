@@ -17,7 +17,8 @@ Endpoints:
                   predicts again). Concurrent renders of one MPI coalesce
                   into one dispatch (batcher.py).
   GET  /mpi/<key> the cached MPI as its wire container (compress.py
-                  to_wire); 404 when not resident.
+                  to_wire): the fleet's peer-fetch surface; 404 when not
+                  resident.
   GET  /healthz   liveness + engine/bucket/cache snapshot, with the weight
                   generation and the swap state.
   GET  /metrics   Prometheus text exposition (serving/metrics.py names).
@@ -31,6 +32,15 @@ Endpoints:
   GET  /debug/trace  the request-lifecycle host spans (parse, cache_lookup,
                   coalesce, queue_wait, dispatch, engine_predict, encode) as
                   Chrome-trace JSON; ?request_id= narrows it to one request.
+  GET  /debug/hot_keys?n=  the n most recently used cache keys, hottest
+                  first (what a joining replica pre-warms).
+  POST /admin/drain {"draining": bool}: product POSTs answer 503 +
+                  Retry-After while /mpi/<key> stays served (the autoscale
+                  drain's handoff).
+  POST /admin/peers {"peers": {name: url}, "peer_name"}: the
+                  fleet membership for peer fetch.
+  POST /admin/prewarm {"keys", "sources", "timeout_s"?}: adopt cached
+                  MPIs from other replicas over /mpi/<key>.
 
 Admission control: beyond `resilience.serve_max_queue_requests` pending
 renders the server sheds with 503 + Retry-After; every render carries a
@@ -41,10 +51,21 @@ clamped to REQUEST_TIMEOUT_S) that the batcher enforces before dispatch
 sheds at once (503) until a half-open trial succeeds, with /healthz at 503
 while it is open. Overload is an honest 503/504, never a hang or a 500.
 
-Not ported yet (ROADMAP queue 1): the fleet hooks (--peer and the peer fetch
-on a miss, /admin/peers, /admin/prewarm, /admin/drain, /debug/hot_keys), the
-brownout degradation ladder (serving.degrade_enabled: true raises), the SLO
-tracker, the flight recorder and the chaos fault seams.
+Brownout (serving/degrade.py, `serving.degrade_enabled`): before any of
+those sheds, a per-replica ladder trades fidelity for availability: int8 and
+pruned predicts (L1), stale-while-revalidate over older-step cache entries
+with the peer fetch skipped (L2), a widened coalescing window (L3). Every
+degraded answer carries `X-Degraded: level=<n>;tier=<t>` and ticks
+mine_serve_degradation_responses_total{level}. An SLO tracker (obs/slo.py)
+is evaluated on every /metrics scrape; its worst burn rate feeds the ladder.
+
+Fleet (serving/fleet.py): with --peer (the full membership, this replica
+included) and --peer-name, a local cache miss first asks the replicas ahead
+of this one in the digest's ring order for the MPI over GET /mpi/<key> and
+adopts it onto this engine's device instead of running the encoder.
+
+Not ported yet (ROADMAP queue 1 item 4): the flight recorder, the chaos
+fault seams and --peak-flops.
 
 CLI: python -m mine_tpu_torch.serving --workspace <train workspace> restores
 the model weights only (training/checkpoint.py load_for_serving), runs the
@@ -71,11 +92,12 @@ from urllib.parse import parse_qs
 import numpy as np
 import torch
 
-from mine_tpu_torch.config import Config, unsupported_serving_options
+from mine_tpu_torch.config import Config
 from mine_tpu_torch.inference.trajectory import poses_from_offsets
 from mine_tpu_torch.inference.video import normalize_disparity, to_uint8
 from mine_tpu_torch.obs.ledger import set_build_info
 from mine_tpu_torch.obs.memlog import MemLog
+from mine_tpu_torch.obs.slo import tracker_from_config
 from mine_tpu_torch.obs.trace import (
     PARENT_SPAN_HEADER,
     REQUEST_ID_HEADER,
@@ -93,13 +115,15 @@ from mine_tpu_torch.serving.batcher import (
     QueueFull,
 )
 from mine_tpu_torch.serving.cache import MPICache, key_from_str, key_to_str, mpi_key
-from mine_tpu_torch.serving.compress import CompressedMPI, to_wire
+from mine_tpu_torch.serving.compress import CompressedMPI, from_wire, to_wire
+from mine_tpu_torch.serving.degrade import PressureSample, controller_from_config
 from mine_tpu_torch.serving.engine import (
     BucketSpec,
     RenderEngine,
     SwapError,
     SwapInProgress,
 )
+from mine_tpu_torch.serving.fleet import HashRing, _urllib_transport
 from mine_tpu_torch.serving.metrics import ServingMetrics
 from mine_tpu_torch.training import checkpoint as ckpt
 from mine_tpu_torch.utils.device import resolve_device
@@ -153,8 +177,8 @@ def _poses_from_body(body: dict) -> np.ndarray:
 
 
 class ServingApp:
-    """Engine + cache + batcher + breaker + metrics + tracer for one
-    workspace (or one state dict)."""
+    """Engine + cache + batcher + breaker + metrics + tracer + SLO tracker
+    (+ the brownout ladder) for one workspace (or one state dict)."""
 
     def __init__(
         self,
@@ -169,10 +193,8 @@ class ServingApp:
         trace_enabled: bool = True,
         swap_source: str | SwapSource | None = None,
         device: torch.device | str | None = None,
+        engine: RenderEngine | None = None,
     ):
-        problems = unsupported_serving_options(cfg)
-        if problems:
-            raise NotImplementedError("; ".join(problems))
         res = cfg.resilience
         self.metrics = ServingMetrics()
         self.breaker = CircuitBreaker(
@@ -191,13 +213,20 @@ class ServingApp:
             enabled=trace_enabled, max_spans=cfg.obs.trace_buffer_spans,
             on_span=lambda span: self.metrics.trace_spans.inc(cat=span.cat),
         )
-        self.engine = RenderEngine(cfg, state_dict, checkpoint_step=checkpoint_step,
-                                   metrics=self.metrics, fov_deg=fov_deg, tracer=self.tracer,
-                                   device=device)
+        if engine is not None:
+            # a prebuilt engine (serving/fake.py's) reports into this app
+            engine.metrics, engine.tracer = self.metrics, self.tracer
+            self.engine = engine
+        else:
+            self.engine = RenderEngine(cfg, state_dict, checkpoint_step=checkpoint_step,
+                                       metrics=self.metrics, fov_deg=fov_deg,
+                                       tracer=self.tracer, device=device)
         # device-memory gauges, sampled after each dispatch and on scrape
         self.memlog = MemLog(tracer=self.tracer, live_gauge=self.metrics.hbm_live_bytes,
                              peak_gauge=self.metrics.hbm_peak_bytes, device=self.engine.device)
         self.metrics.weight_generation.set(self.engine.generation)
+        # availability and p95 objectives over this registry, on every scrape
+        self.slo = tracker_from_config(self.metrics.registry, cfg)
         set_build_info(self.metrics.registry, backend=self.engine.device.type)
         # hot-swap source: a workspace path (POST /admin/swap re-reads its
         # newest checkpoint) or a zero-arg callable returning (state_dict,
@@ -215,6 +244,20 @@ class ServingApp:
         self.allowed_buckets: set[BucketSpec] = {self.engine.default_bucket}
         for spec in allowed_buckets or ():
             self.allowed_buckets.add(tuple(int(v) for v in spec))
+        # fleet peer fetch, off until configure_peers names the membership;
+        # each fetch is bounded by serving.peer_fetch_timeout_s, and every
+        # failure falls through to the local predict
+        self.peer_fetch_timeout_s = cfg.serving.peer_fetch_timeout_s
+        if self.peer_fetch_timeout_s <= 0:
+            raise ValueError(f"serving.peer_fetch_timeout_s={self.peer_fetch_timeout_s} "
+                             "must be > 0")
+        self.peers: dict[str, str] = {}
+        self.peer_name: str | None = None
+        self._peer_ring: HashRing | None = None
+        # drain shedding (the autoscale retirement): product POSTs answer
+        # 503 + Retry-After, GET /mpi/<key> and the admin routes stay served
+        self.draining = False
+        self.metrics.draining.set(0)
         self.cache = MPICache(cache_bytes, metrics=self.metrics)
         self.batcher = MicroBatcher(
             self._guarded_render, max_delay_ms=max_delay_ms,
@@ -223,9 +266,52 @@ class ServingApp:
             metrics=self.metrics, tracer=self.tracer,
         ).start()
         self._started_at = time.time()
+        # the brownout ladder, off unless serving.degrade_enabled
+        self._last_burn = 0.0  # the worst mine_slo_burn_rate at the last scrape
+        self._normal_delay_s = self.batcher.max_delay_s
+        self._degraded_delay_s = cfg.serving.degrade_coalesce_delay_ms / 1e3
+        self.degrade = (controller_from_config(cfg, on_level=self._apply_degradation)
+                        if cfg.serving.degrade_enabled else None)
+        self.metrics.degradation_level.set(0)
         # predict singleflight: concurrent misses of one key share one pass
         self._inflight: dict[Any, Future] = {}
         self._inflight_lock = threading.Lock()
+
+    # -- the brownout ladder (serving/degrade.py) -----------------------------
+
+    def _degrade_tick(self) -> int:
+        """One ladder observation of the live pressure (queue depth and
+        breaker read now, the burn rate of the last scrape); level 0 with
+        the ladder off. Called per product request and per /metrics
+        scrape, so an idle replica relaxes on the scrape cadence."""
+        if self.degrade is None:
+            return 0
+        return self.degrade.tick(PressureSample(
+            queue_frac=self.batcher.queue_frac(),
+            burn_rate=self._last_burn,
+            breaker_open=self.breaker.state == "open",
+        ))
+
+    def _apply_degradation(self, level: int) -> None:
+        """The controller's on_level hook (transitions only): L1's
+        compression override goes to the engine, L3 widens and any lower
+        level restores the batcher's window, for the current queue too."""
+        tier = self.degrade.tier_override()
+        if tier is not None:
+            self.engine.set_degraded_compression(tier, self.degrade.prune_eps_override())
+        else:
+            self.engine.clear_degraded_compression()
+        self.batcher.set_max_delay_s(self._degraded_delay_s if self.degrade.widen_coalesce()
+                                     else self._normal_delay_s)
+        self.metrics.degradation_level.set(level)
+
+    def slo_scrape(self) -> None:
+        """The scrape-cadence SLO refresh and one ladder observation: the
+        burn rates just published are the ladder's burn signal until the
+        next scrape."""
+        report = self.slo.evaluate()
+        self._last_burn = max((row["burn_rate"] for row in report.values()), default=0.0)
+        self._degrade_tick()
 
     # -- circuit breaker around the engine ------------------------------------
 
@@ -371,7 +457,7 @@ class ServingApp:
     # -- the product -----------------------------------------------------------
 
     def predict(self, image_bytes: bytes, spec: BucketSpec | None = None,
-                request_id: str | None = None) -> dict:
+                request_id: str | None = None, parent_span: str | None = None) -> dict:
         digest = hashlib.sha256(image_bytes).hexdigest()
         if spec is not None:
             spec = tuple(int(v) for v in spec)
@@ -382,21 +468,24 @@ class ServingApp:
                     "(extend with --bucket H,W,S at server start)"
                 )
         bucket = self.engine.bucket(spec)  # validates the requested shape
+        self._degrade_tick()  # this request serves at the level it ticked
         # ONE snapshot keys the cache AND runs the dispatch, so that a
-        # new-generation MPI is never filed under the old step's key
+        # new-generation MPI is never filed under the old step's key; the
+        # tier and threshold likewise, so that a level flip mid-request
+        # never files an int8 entry under an fp32 key
         weights = self.engine.weights()
-        tier, prune_eps = self.engine.cache_tier, self.engine.prune_eps
+        tier, prune_eps = self.engine.effective_tier(), self.engine.effective_prune_eps()
         key = mpi_key(digest, weights.checkpoint_step, bucket.spec, tier)
 
-        def response(entry, cached: bool) -> dict:
+        def response(entry, cached: bool, entry_key=key) -> dict:
             return {
-                "mpi_key": key_to_str(key),
+                "mpi_key": key_to_str(entry_key),
                 "cached": cached,
                 "bucket": list(bucket.spec),
                 "planes": bucket.num_planes,
                 "planes_kept": (entry.planes_kept if isinstance(entry, CompressedMPI)
                                 else bucket.num_planes),
-                "tier": tier,
+                "tier": entry_key[5],
                 "mpi_bytes": entry.nbytes,
             }
 
@@ -405,6 +494,13 @@ class ServingApp:
             entry = self.cache.get(key)
         if entry is not None:
             return response(entry, cached=True)
+        if self.degrade is not None and self.degrade.serve_stale():
+            # L2 stale-while-revalidate: the newest older-step entry of this
+            # scene answers, under its own key so that renders hit
+            stale = self.cache.stale_key(key)
+            old = None if stale is None else self.cache.get(stale, record=False)
+            if old is not None:
+                return {**response(old, cached=True, entry_key=stale), "stale": True}
         with self._inflight_lock:
             future = self._inflight.get(key)
             owner = future is None
@@ -424,14 +520,23 @@ class ServingApp:
                 raise RequestTimeout(f"predict singleflight wait exceeded "
                                      f"{REQUEST_TIMEOUT_S}s") from None
         try:
-            # decode first, outside the breaker: undecodable bytes are the
-            # client's fault (400), never an engine failure
+            # decode first, outside the breaker and before any peer: bytes
+            # that do not decode are the client's fault (400), never an
+            # engine failure and never worth a round trip
             image = _decode_image(image_bytes)
             if self.breaker.rejecting():
                 self.metrics.shed_requests.inc(reason="breaker_open")
                 raise BreakerOpen(self.breaker.retry_after_s() or self.retry_after_s)
-            entry = self._breaker_guard("predict", self.engine.predict, image, bucket.spec,
-                                        request_id, weights, tier, prune_eps)
+            # a peer holding this key hands it over for network bytes
+            # instead of an encoder pass, unless the ladder is at L2+
+            entry = None
+            if self.degrade is None or not self.degrade.skip_peer_fetch():
+                entry = self._peer_fetch(key, digest, request_id=request_id,
+                                         parent_span=parent_span)
+            from_peer = entry is not None
+            if entry is None:
+                entry = self._breaker_guard("predict", self.engine.predict, image,
+                                            bucket.spec, request_id, weights, tier, prune_eps)
             self.cache.put(key, entry)
             future.set_result(entry)
         except BaseException as exc:
@@ -440,7 +545,155 @@ class ServingApp:
         finally:
             with self._inflight_lock:
                 self._inflight.pop(key, None)
-        return response(entry, cached=False)
+        return response(entry, cached=from_peer)
+
+    # -- the fleet wire (serving/fleet.py) ------------------------------------
+
+    def configure_peers(self, peers: dict[str, str] | None, peer_name: str | None) -> None:
+        """(Re)declare the fleet membership for peer fetch: `peers` is the
+        full membership {name: base_url}, this replica included, and
+        `peer_name` this one; None or empty turns it off. The ring is built
+        as the router's is, so both order candidates alike. A rejected call
+        leaves the previous membership in effect."""
+        if not peers:
+            self.peers, self.peer_name, self._peer_ring = {}, None, None
+            return
+        if not peer_name or peer_name not in peers:
+            raise ValueError("peer_name must name this replica inside peers "
+                             f"(got {peer_name!r}, peers {sorted(peers)})")
+        ring = HashRing(list(peers))
+        self.peers, self.peer_name, self._peer_ring = dict(peers), peer_name, ring
+
+    def _peer_fetch(self, key, digest: str, request_id: str | None = None,
+                    parent_span: str | None = None):
+        """Adopt this key's MPI from a replica ahead of this one in the
+        digest's candidate order: none when this one owns it (a joiner owns
+        its new arc, which reaches it through the pre-warm); an owner that
+        left the router's ring but is still up (drained, or ejected by the
+        health gate) is just ahead. Returns the
+        entry on this engine's device, or None. Never raises: every outcome
+        is a counter tick, and a failure falls through to the local predict.
+        The GET carries the request's trace context, so the peer records
+        its hop under the same request id."""
+        # one membership snapshot: configure_peers may swap it meanwhile
+        ring, peers, self_name = self._peer_ring, self.peers, self.peer_name
+        if ring is None:
+            return None
+        candidates = ring.candidates(digest)
+        try:
+            upstream = candidates[:candidates.index(self_name)]
+        except ValueError:  # not on the ring: ask the owner
+            upstream = candidates[:1]
+        if not upstream:
+            return None
+        key_str = key_to_str(key)
+        # one deadline for the owner and one failover together
+        deadline = time.monotonic() + self.peer_fetch_timeout_s
+        for name in upstream[:2]:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                break
+            base_url = peers.get(name)
+            if base_url is None:
+                continue
+            hop_id = new_span_id()
+            hop_headers: dict[str, str] = {}
+            if request_id:
+                hop_headers[REQUEST_ID_HEADER] = request_id
+                hop_headers[PARENT_SPAN_HEADER] = hop_id
+            try:
+                with self.tracer.span("peer_fetch", cat="serve", peer=name,
+                                      request_id=request_id, span_id=hop_id,
+                                      parent_span=parent_span):
+                    status, _, body = _urllib_transport(
+                        "GET", f"{base_url.rstrip('/')}/mpi/{key_str}", None, hop_headers,
+                        remaining)
+                if status == 200:
+                    entry = from_wire(body)
+                    if tuple(entry.bucket) != tuple(key[2:5]):
+                        raise ValueError(f"peer {name} returned bucket {entry.bucket} "
+                                         f"for key bucket {key[2:5]}")
+                    # drift the key does not fence: another full plane count,
+                    # or a pruned entry where this replica does not prune
+                    full = self.engine.bucket(key[2:5]).num_planes
+                    if isinstance(entry, CompressedMPI):
+                        drifted = (entry.tier != key[5] or entry.num_planes_full != full
+                                   or (not self.engine.prune_eps
+                                       and entry.planes_kept < entry.num_planes_full))
+                    else:
+                        drifted = int(entry.mpi_rgb.shape[1]) != full
+                    if drifted:
+                        self.metrics.peer_fetch.inc(outcome="incompatible")
+                        return None
+                    entry = self.engine._adopt_entry(entry, request_id=request_id)
+                    self.metrics.peer_fetch.inc(outcome="hit")
+                    return entry
+                outcome = "miss" if status == 404 else "error"
+            except TimeoutError:
+                outcome = "timeout"
+            except Exception:  # noqa: BLE001 - degrade to the local predict
+                outcome = "error"
+            self.metrics.peer_fetch.inc(outcome=outcome)
+        return None
+
+    def set_draining(self, draining: bool) -> None:
+        """Flip the drain shedding state (POST /admin/drain); an aborted
+        drain flips back with its cache intact."""
+        self.draining = bool(draining)
+        self.metrics.draining.set(1 if self.draining else 0)
+
+    def prewarm(self, keys: list[str], sources: list[str], timeout_s: float | None = None,
+                request_id: str | None = None) -> dict[str, int]:
+        """Adopt cached MPIs over the fleet wire before this replica serves
+        their traffic: the autoscale join's pre-warm and the drain
+        handoff's receiving side. `keys` are wire keys, hottest first;
+        `sources` base URLs tried in order per key. Each fetch is bounded by
+        the peer-fetch budget and `timeout_s` bounds the pass. Never raises;
+        returns the outcome counts (also on mine_serve_prewarm_keys_total)."""
+        counts = {"fetched": 0, "resident": 0, "miss": 0, "error": 0}
+        deadline = time.monotonic() + timeout_s if timeout_s and timeout_s > 0 else None
+        for key_str in keys:
+            if deadline is not None and time.monotonic() >= deadline:
+                break
+            try:
+                key = key_from_str(key_str)
+            except ValueError:
+                counts["error"] += 1
+                self.metrics.prewarm_keys.inc(outcome="error")
+                continue
+            if self.cache.get(key, record=False) is not None:
+                counts["resident"] += 1
+                self.metrics.prewarm_keys.inc(outcome="resident")
+                continue
+            outcome = "miss"
+            for base_url in sources:
+                budget = self.peer_fetch_timeout_s
+                if deadline is not None:
+                    budget = min(budget, deadline - time.monotonic())
+                if budget <= 0:
+                    break
+                try:
+                    with self.tracer.span("prewarm_fetch", cat="serve", request_id=request_id,
+                                          key=key_str[:16]):
+                        status, _, body = _urllib_transport(
+                            "GET", f"{base_url.rstrip('/')}/mpi/{key_str}", None, {}, budget)
+                    if status != 200:
+                        continue
+                    entry = from_wire(body)
+                    if tuple(entry.bucket) != tuple(key[2:5]):
+                        raise ValueError(f"source returned bucket {entry.bucket} for key "
+                                         f"bucket {key[2:5]}")
+                    self.cache.put(key, self.engine._adopt_entry(entry, request_id=request_id))
+                    outcome = "fetched"
+                    break
+                except TimeoutError:
+                    continue
+                except Exception:  # noqa: BLE001 - degrade, never raise
+                    outcome = "error"
+                    continue
+            counts[outcome] += 1
+            self.metrics.prewarm_keys.inc(outcome=outcome)
+        return counts
 
     def compressed_blob(self, key_str: str) -> bytes | None:
         """The cached entry for `key_str` as wire bytes, or None. Not a
@@ -451,6 +704,7 @@ class ServingApp:
     def render(self, key_str: str, poses: np.ndarray, timeout_s: float | None = None,
                request_id: str | None = None) -> tuple[np.ndarray, np.ndarray]:
         key = key_from_str(key_str)
+        self._degrade_tick()  # renders feel the queue's pressure first
         with self.tracer.span("cache_lookup", cat="serve", endpoint="render",
                               request_id=request_id):
             entry = self.cache.get(key)
@@ -483,8 +737,11 @@ class ServingApp:
         # "degraded" (503) only while OPEN: half-open must answer 200 so the
         # recovery trial can arrive
         status = {"closed": "ok", "half_open": "recovering"}.get(breaker_state, "degraded")
+        if self.draining:
+            status = "draining"  # out of service for product traffic
         return {
             "status": status,
+            "draining": self.draining,
             "uptime_s": round(time.time() - self._started_at, 1),
             "backend": self.engine.device.type,
             "checkpoint_step": self.engine.checkpoint_step,
@@ -499,6 +756,7 @@ class ServingApp:
             "queue_bound": self.batcher.max_queue_requests,
             "breaker": breaker_state,
             "breaker_trips": self.breaker.trips,
+            "degradation": None if self.degrade is None else self.degrade.snapshot(),
             "trace_enabled": self.tracer.enabled,
             "trace_spans_buffered": len(self.tracer),
         }
@@ -530,9 +788,9 @@ class _Handler(BaseHTTPRequestHandler):
             super().log_message(fmt, *args)
 
     def _observe(self, code: int) -> None:
-        """Count and time this request once, before its response bytes hit
-        the socket: a client that saw its answer and scrapes /metrics finds
-        it counted."""
+        """Count, time and trace this request once, before its response
+        bytes hit the socket: a client that saw its answer finds it counted
+        on /metrics and its root span on /debug/trace."""
         if getattr(self, "_observed", True) or not hasattr(self, "_t0"):
             return
         self._observed = True
@@ -540,6 +798,23 @@ class _Handler(BaseHTTPRequestHandler):
         app.metrics.requests.inc(endpoint=self._endpoint, status=str(code))
         app.metrics.request_latency.observe(time.monotonic() - self._t0,
                                             endpoint=self._endpoint)
+        if self._endpoint not in ("metrics", "healthz", "debug_trace", "debug_hot_keys"):
+            # the request's root span; scrape traffic stays out of the ring
+            app.tracer.record("request", "serve", self._p0, time.perf_counter(),
+                              request_id=self.request_id, endpoint=self._endpoint,
+                              status=code, span_id=self._span_id,
+                              parent_span=self._parent_span)
+
+    def _degraded_headers(self, app: ServingApp) -> dict[str, str] | None:
+        """X-Degraded for a product answer served while the ladder is
+        engaged (its level and effective tier), counted per level; None at
+        L0 or with the ladder off."""
+        degrade = app.degrade
+        if degrade is None or degrade.level <= 0:
+            return None
+        degrade.record_response()
+        app.metrics.degradation_responses.inc(level=str(degrade.level))
+        return {"X-Degraded": degrade.announcement(app.engine.effective_tier())}
 
     def _send(self, code: int, payload: bytes, content_type: str,
               extra_headers: dict[str, str] | None = None) -> None:
@@ -582,34 +857,42 @@ class _Handler(BaseHTTPRequestHandler):
         self._send_json(504, {"error": str(exc)})  # DeadlineExceeded, RequestTimeout
         return 504
 
-    def _route(self, method: str, path: str) -> tuple[int, str]:
+    def _route(self, method: str, path: str) -> int:
         # each branch sets its endpoint label before it answers, since
         # _observe fires inside _send
         app = self.server.app
         if method == "GET" and path == "/healthz":
             self._endpoint = "healthz"
             health = app.health()
-            code = 503 if health["status"] == "degraded" else 200
+            code = 503 if health["status"] in ("degraded", "draining") else 200
             self._send_json(code, health)
-            return code, "healthz"
+            return code
         if method == "GET" and path == "/metrics":
             self._endpoint = "metrics"
             app.memlog.sample()
+            app.slo_scrape()
             self._send(200, app.metrics.render().encode(),
                        "text/plain; version=0.0.4; charset=utf-8")
-            return 200, "metrics"
+            return 200
         if method == "GET" and path == "/debug/trace":
             self._endpoint = "debug_trace"
             rid = (parse_qs(self.path.partition("?")[2]).get("request_id") or [None])[0]
             self._send_json(200, app.trace_for_request(rid) if rid else
                             app.tracer.to_chrome_trace(extra_events=app.memlog.counter_events()))
-            return 200, "debug_trace"
-        if method == "POST" and path == "/predict":
-            self._endpoint = "predict"
-            return self._predict(app), "predict"
-        if method == "POST" and path == "/render":
-            self._endpoint = "render"
-            return self._render(app), "render"
+            return 200
+        if method == "POST" and path in ("/predict", "/render"):
+            self._endpoint = path.lstrip("/")
+            if app.draining:
+                # the router's cooldown steers the arc to its new owner while
+                # /mpi/<key> keeps serving the handoff
+                app.metrics.shed_requests.inc(reason="draining")
+                retry_after = max(app.retry_after_s, 0.1)
+                self._send_json(503, {"error": "replica draining", "retry_after_s": retry_after},
+                                {"Retry-After": f"{retry_after:.1f}"})
+                return 503
+            if path == "/predict":
+                return self._predict(app)
+            return self._render(app)
         if method == "GET" and path.startswith("/mpi/"):
             self._endpoint = "mpi"
             key_str = path[len("/mpi/"):]
@@ -617,55 +900,64 @@ class _Handler(BaseHTTPRequestHandler):
                 blob = app.compressed_blob(key_str)
             except ValueError as exc:
                 self._send_json(400, {"error": f"bad mpi key: {exc}"})
-                return 400, "mpi"
+                return 400
             if blob is None:
                 self._send_json(404, {"error": f"mpi_key {key_str} not cached here"})
-                return 404, "mpi"
+                return 404
             self._send(200, blob, "application/octet-stream")
-            return 200, "mpi"
+            return 200
         if path == "/admin/swap" and method in ("GET", "POST"):
             self._endpoint = "admin_swap"
             if method == "GET":
                 self._send_json(200, app.swap_status())
-                return 200, "admin_swap"
-            return self._admin_swap(app), "admin_swap"
+                return 200
+            return self._admin_swap(app)
+        if method == "GET" and path == "/debug/hot_keys":
+            self._endpoint = "debug_hot_keys"
+            try:
+                n = int((parse_qs(self.path.partition("?")[2]).get("n") or ["64"])[0])
+            except ValueError:
+                self._send_json(400, {"error": "n must be an integer"})
+                return 400
+            self._send_json(200, {"hot_keys": [{"mpi_key": k, "nbytes": b}
+                                               for k, b in app.cache.hot_keys(n)]})
+            return 200
+        if method == "POST" and path in ("/admin/drain", "/admin/peers", "/admin/prewarm"):
+            self._endpoint = path[1:].replace("/", "_")
+            handler = {"/admin/drain": self._admin_drain, "/admin/peers": self._admin_peers,
+                       "/admin/prewarm": self._admin_prewarm}[path]
+            return handler(app)
         self._endpoint = "unknown"
         self._send_json(404, {"error": f"no route {method} {path}"})
-        return 404, "unknown"
+        return 404
 
     def _handle(self, method: str) -> None:
-        app = self.server.app
         path = self.path.split("?", 1)[0]
         self.request_id = resolve_request_id(self.headers.get(REQUEST_ID_HEADER))
         # this request's root span id, and the upstream hop's
         self._span_id = new_span_id()
         self._parent_span = resolve_parent_span(self.headers.get(PARENT_SPAN_HEADER))
         self._t0 = time.monotonic()
+        self._p0 = time.perf_counter()
         self._observed = False
         self._endpoint = path.lstrip("/") or "unknown"
-        p0 = time.perf_counter()
         try:
-            code, endpoint = self._route(method, path)
+            code = self._route(method, path)
         except (BrokenPipeError, ConnectionResetError):
             raise
         except _BodyTooLarge as exc:
             # refused without reading the body
-            code, endpoint = 413, self._endpoint
+            code = 413
             try:
                 self._send_json(413, {"error": str(exc)})
             except Exception:  # noqa: BLE001 - client already gone
                 pass
         except Exception as exc:  # noqa: BLE001 - HTTP boundary
-            code, endpoint = 500, self._endpoint
+            code = 500
             try:
                 self._send_json(500, {"error": f"{type(exc).__name__}: {exc}"})
             except Exception:  # noqa: BLE001 - client already gone
                 pass
-        if endpoint not in ("metrics", "healthz", "debug_trace"):
-            # the request's root span; scrape traffic stays out of the ring
-            app.tracer.record("request", "serve", p0, time.perf_counter(),
-                              request_id=self.request_id, endpoint=endpoint, status=code,
-                              span_id=self._span_id, parent_span=self._parent_span)
         # backstop for a response the client never received
         self._observe(code)
 
@@ -699,14 +991,75 @@ class _Handler(BaseHTTPRequestHandler):
             return 400
         try:
             with app.tracer.span("predict", cat="serve", request_id=rid):
-                result = app.predict(image_bytes, spec, request_id=rid)
+                result = app.predict(image_bytes, spec, request_id=rid,
+                                     parent_span=self._span_id)
         except (BreakerOpen, RequestTimeout) as exc:
             return self._overload_response(exc)
         except (ValueError, OSError) as exc:
             # a bad bucket, or undecodable image bytes (PIL raises OSError)
             self._send_json(400, {"error": str(exc)})
             return 400
-        self._send_json(200, result)
+        self._send_json(200, result, self._degraded_headers(app))
+        return 200
+
+    def _json_body(self, what: str) -> dict | None:
+        """The request body as a JSON object, or None after answering 400."""
+        try:
+            req = json.loads(self._read_body() or b"{}")
+            if not isinstance(req, dict):
+                raise ValueError("body must be a JSON object")
+        except (ValueError, TypeError) as exc:
+            self._send_json(400, {"error": f"bad {what} body: {exc}"})
+            return None
+        return req
+
+    def _admin_drain(self, app: ServingApp) -> int:
+        """{"draining": true|false} flips the drain shedding state."""
+        req = self._json_body("drain")
+        if req is None:
+            return 400
+        app.set_draining(bool(req.get("draining", True)))
+        self._send_json(200, {"draining": app.draining})
+        return 200
+
+    def _admin_peers(self, app: ServingApp) -> int:
+        """{"peers": {name: url}, "peer_name": str}: the
+        membership the autoscale controller fans out after each change."""
+        req = self._json_body("peers")
+        if req is None:
+            return 400
+        try:
+            peers = req.get("peers") or None
+            if peers is not None and not (
+                    isinstance(peers, dict)
+                    and all(isinstance(k, str) and isinstance(v, str)
+                            for k, v in peers.items())):
+                raise ValueError("peers must map name -> base URL")
+            app.configure_peers(peers, req.get("peer_name"))
+        except (ValueError, TypeError) as exc:
+            self._send_json(400, {"error": f"bad peers body: {exc}"})
+            return 400
+        self._send_json(200, {"peers": sorted(app.peers), "peer_name": app.peer_name})
+        return 200
+
+    def _admin_prewarm(self, app: ServingApp) -> int:
+        """{"keys": [mpi_key...], "sources": [base_url...], "timeout_s"?}
+        -> the outcome counts of ServingApp.prewarm."""
+        req = self._json_body("prewarm")
+        if req is None:
+            return 400
+        try:
+            keys, sources = req.get("keys") or [], req.get("sources") or []
+            if not all(isinstance(k, str) for k in keys) \
+                    or not all(isinstance(u, str) for u in sources):
+                raise ValueError("keys and sources must be string lists")
+            timeout_s = req.get("timeout_s")
+            timeout_s = None if timeout_s is None else float(timeout_s)
+        except (ValueError, TypeError) as exc:
+            self._send_json(400, {"error": f"bad prewarm body: {exc}"})
+            return 400
+        self._send_json(200, app.prewarm(list(keys), list(sources), timeout_s=timeout_s,
+                                         request_id=self.request_id))
         return 200
 
     def _admin_swap(self, app: ServingApp) -> int:
@@ -714,13 +1067,8 @@ class _Handler(BaseHTTPRequestHandler):
         (200 on a flip or a no-op, 409 when another swap runs, 422 for a
         named rejection or load failure). A failed swap is never a 5xx: the
         old generation is still serving."""
-        try:
-            body = self._read_body()
-            req = json.loads(body) if body else {}
-            if not isinstance(req, dict):
-                raise ValueError("body must be a JSON object")
-        except (ValueError, TypeError) as exc:
-            self._send_json(400, {"error": f"bad swap body: {exc}"})
+        req = self._json_body("swap")
+        if req is None:
             return 400
         wait = bool(req.get("wait"))
         try:
@@ -774,7 +1122,7 @@ class _Handler(BaseHTTPRequestHandler):
                     base64.b64encode(_encode_png(f)).decode()
                     for f in to_uint8(normalize_disparity(disp))[..., 0]
                 ]
-        self._send_json(200, out)
+        self._send_json(200, out, self._degraded_headers(app))
         return 200
 
 
@@ -825,12 +1173,27 @@ def main(argv: list[str] | None = None) -> None:
                              "(smoke runs only)")
     parser.add_argument("--no-trace", action="store_true",
                         help="disable request-lifecycle host spans")
+    parser.add_argument("--peer", action="append", default=[], metavar="NAME=URL",
+                        help="fleet peer replica (repeatable; include this replica too and "
+                             "name it with --peer-name): a local cache miss asks the "
+                             "digest's ring owner for the MPI before running the encoder")
+    parser.add_argument("--peer-name", default=None,
+                        help="this replica's name inside the --peer set")
     parser.add_argument("--watch-last-good", type=float, default=0.0, metavar="SECS",
                         help="poll the workspace's last_good pointer every SECS seconds and "
                              "hot-swap to newer vetted checkpoints (0 disables)")
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
     parser.add_argument("--verbose", action="store_true")
     args = parser.parse_args(argv)
+    peers = {}
+    for spec in args.peer:
+        name, _, url = spec.partition("=")
+        if not name or not url:
+            parser.error(f"--peer must be NAME=URL, got {spec!r}")
+        peers[name] = url
+    if peers and args.peer_name not in peers:
+        parser.error(f"--peer-name must name this replica inside the --peer set "
+                     f"(got {args.peer_name!r}, peers {sorted(peers)})")
 
     device = resolve_device(args.device)  # no CUDA and no --device cpu: raise first
     cfg, state, step = ckpt.load_for_serving(args.workspace, overrides=args.extra_config,
@@ -845,6 +1208,7 @@ def main(argv: list[str] | None = None) -> None:
                      fov_deg=args.fov, allowed_buckets=extra_buckets,
                      trace_enabled=not args.no_trace, swap_source=args.workspace,
                      device=device)
+    app.configure_peers(peers, args.peer_name)
     if args.watch_last_good > 0:
         app.start_promotion_watch(interval_s=args.watch_last_good)
     if not args.no_warmup:

@@ -75,10 +75,9 @@ def test_serving_metric_families_are_the_jax_families():
     assert set(ours) <= set(theirs)
     assert {n: f.kind for n, f in ours.items()} == {n: theirs[n].kind for n in ours}
     missing = set(theirs) - set(ours)
-    assert missing == {"mine_serve_draining", "mine_serve_degradation_level",
-                       "mine_serve_degradation_responses_total", "mine_serve_step_flops",
-                       "mine_serve_mfu", "mine_serve_achieved_tflops_per_sec",
-                       "mine_fleet_peer_fetch_total", "mine_serve_prewarm_keys_total"}
+    # the cost gauges wait for obs/cost.py (ROADMAP queue 1 item 4)
+    assert missing == {"mine_serve_step_flops", "mine_serve_mfu",
+                       "mine_serve_achieved_tflops_per_sec"}
 
 
 def test_rate_gauge_matches():
