@@ -75,7 +75,17 @@ From the root of a checkout, on a machine with a CUDA device and nvcc:
      and an autoscale join and drain over replica processes of the serving
      CLI, under client traffic with no 5xx; K5 held on the adopted and the
      L1-degraded entries;
-  9. times every kernel (CUDA events), its plain version and, for the warp
+  9. observes and survives training and serving (obs_resilience_phase):
+     Trainer.fit with obs on at full width, dense and streaming, with a
+     counted step (FLOPs, MFU) and a profile window attributed per
+     component (coverage >= 0.9, K1/K2 inside homography_warp, K5 inside
+     composite), a SIGUSR1 flight dump mid-run; the dense step with obs off
+     and on in turns (within 3 %); the train CLI preempted by
+     MINE_TPU_FAULTS=sigterm@step=3, its checkpoint restored bit-equal and
+     trained on; a NaN step skipped and a loader error retried on the LLFF
+     fixture; the serving CLI with --peak-flops and a failing predict, a
+     corrupt swap and a SIGUSR1 dump;
+ 10. times every kernel (CUDA events), its plain version and, for the warp
      and its backward, torch's grid_sample, beside each kernel's memory
      bound (the backward also on the captured training operands; the
      warp-composite also at the 768x1024, S=128 size); times predict and
@@ -1855,6 +1865,430 @@ def serve_fleet_phase(info, dev, ws: str, image: np.ndarray) -> dict:
     return {"launches": {"serve_fleet": launches}, "k5_errs": errs}
 
 
+OBS_STEPS = 6  # the obs-enabled fits: a counted step, a 2-step profile window, timed steps
+OBS_TIMING_FITS = ("off", "on", "on", "off", "off", "on")
+OBS_TIMING_STEPS = 8  # steps a timing fit; its first interval is left out
+DENSE_STEP_MS_PERF_MD = "399-427 ms (PERF.md section 5, earlier runs of this script)"
+PREDICT_COST_TURNS = 12  # engine.predict with the cost gauges and without, in turns
+
+
+def obs_resilience_phase(info, dev, train_cfg, train_state, llff_ws: str,
+                         image: np.ndarray) -> dict:
+    """Observability and resilience at full width (the default recipe,
+    ResNet-50, 384x512, S=32, B=4, bf16 network):
+      * Trainer.fit with obs on, dense then streaming, OBS_STEPS steps with a
+        2-step torch.profiler window from step 2: the counted FLOPs of a
+        step, MFU, the component table (coverage >= 0.9), K1 and K2 inside
+        homography_warp and K5 inside composite, the host spans; the kernels
+        still launch on the counted step; a SIGUSR1 from a timer thread
+        during the dense fit leaves a flight dump with torch.cuda's memory
+        statistics, and the run goes on;
+      * the dense step with obs off and on, timed in turns in this call
+        (intervals between step starts, log every step, batches made
+        beforehand, both trainers with a workspace): obs on within 3 %;
+      * `MINE_TPU_FAULTS=sigterm@step=3` on the train CLI: the process dies
+        by SIGTERM after saving step 3 (sha256-checked) and a flight dump; a
+        new Trainer restores it bit-equal and trains on to step 5;
+      * `nan_loss@step=2,loader_raise@batch=2` on the data_llff workspace's
+        recipe (its LLFF fixture) under the skip policy with one loader
+        retry: step 2's update is dropped bitwise, step 3 is finite, the
+        retry is counted once and the batches equal a clean run's;
+      * the serving CLI with --peak-flops 989e12 and
+        `predict_raise@predict=1,corrupt_ckpt@swap=1`: /metrics shows the
+        predict's FLOPs and a finite MFU, the injected predict failure is a
+        counted 5xx and the next predict succeeds, the corrupt swap is
+        refused (reason corrupt) while the old weights serve, and SIGUSR1
+        leaves a flight dump (the CLI started by autoscale's SubprocessPool);
+      * engine.predict on that workspace with the cost gauges and without,
+        in turns: what they add to a /predict miss (nothing waits for the
+        predict's timing events), and the predict's MFU.
+    Returns the launches of the two obs fits, read around each alone, with
+    K1/K2's size classes counted (SizeTally)."""
+    import glob
+    import io
+    import signal
+    import tempfile
+
+    from PIL import Image
+
+    from mine_tpu_torch.data.conformance.runner import http_request
+    from mine_tpu_torch.data.registry import build_dataset
+    from mine_tpu_torch.obs.attrib import attributed_items, load_trace_events
+    from mine_tpu_torch.ops.kernels import warp as kw
+    from mine_tpu_torch.resilience import chaos
+    from mine_tpu_torch.serving.autoscale import SubprocessPool
+    from mine_tpu_torch.serving.engine import RenderEngine
+    from mine_tpu_torch.serving.metrics import ServingMetrics
+    from mine_tpu_torch.training import checkpoint as ckpt
+    from mine_tpu_torch.training.loop import Trainer
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(root, "build"), exist_ok=True)
+    scratch = tempfile.mkdtemp(prefix="obs_resilience_", dir=os.path.join(root, "build"))
+    kernel_names = {"warp_bilinear_kernel": "K1", "warp_bilinear_grad_kernel": "K2",
+                    "warp_composite_kernel": "K5"}
+    out = {"launches": {}}
+    t_phase = time.perf_counter()
+
+    def flight_dumps(dump_dir: str) -> list[str]:
+        return sorted(glob.glob(os.path.join(dump_dir, "*", "flight_*")))
+
+    def obs_fit(compositor: str, poke: bool) -> dict:
+        cfg = train_cfg.replace(**{
+            "mpi.compositor": compositor, "obs.enabled": True, "obs.profile_start_offset": 2,
+            "obs.profile_steps": 2, "training.log_interval": 2})
+        ws = os.path.join(scratch, f"obs_{compositor}")
+        trainer = Trainer(cfg, ws, state_dict=train_state)
+        poker = None
+        if poke:  # SIGUSR1 from another thread once step 3 is done
+            def send():
+                deadline = time.monotonic() + 300
+                while trainer.global_step < 3 and time.monotonic() < deadline:
+                    time.sleep(0.01)
+                os.kill(os.getpid(), signal.SIGUSR1)
+
+            poker = threading.Thread(target=send, daemon=True)
+            poker.start()
+        tally = SizeTally(kw)
+        try:
+            torch.cuda.synchronize()
+            kw.reset_launches()
+            t0 = time.perf_counter()
+            logged = trainer.fit(build_dataset(cfg, "train", cfg.data.per_gpu_batch_size),
+                                 max_steps=OBS_STEPS)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            launches, sizes = dict(kw.launches), tally.read()
+        finally:
+            tally.close()
+        # 4x384x512 fp32 sources: every K1/K2 launch is of the resident class
+        if any(sizes[name]["banded"] or sizes[name]["resident"] != launches[name]
+               for name in sizes):
+            raise AssertionError(f"obs {compositor}: size classes {sizes}, launches {launches}")
+        if poker is not None:
+            poker.join(timeout=60)
+        table = trainer.attribution
+        if table is None or not table["covered"] or table["basis"] != "device":
+            raise AssertionError(f"obs {compositor}: attribution not covered: {table}")
+        items, _ = attributed_items(load_trace_events(table["trace"]))
+        kernels: dict[str, dict[str, int]] = {}
+        for ev, comp in items:
+            for prefix, label in kernel_names.items():
+                if prefix in ev["name"]:
+                    by = kernels.setdefault(label, {})
+                    by[comp or "unattributed"] = by.get(comp or "unattributed", 0) + 1
+        want = {"K1": "homography_warp", "K2": "homography_warp"}
+        if compositor == "streaming":
+            want["K5"] = "composite"
+        for label, comp in want.items():
+            if set(kernels.get(label, {})) != {comp}:
+                raise AssertionError(f"obs {compositor}: {label} not (only) inside {comp}: "
+                                     f"{kernels}")
+        spans = json.load(open(os.path.join(ws, "profile", "host_spans.trace.json")))
+        span_counts: dict[str, int] = {}
+        for ev in spans["traceEvents"]:
+            if ev.get("ph") == "X":
+                span_counts[ev["name"]] = span_counts.get(ev["name"], 0) + 1
+        if not {"data", "step", "sync", "log", "ckpt"} <= set(span_counts):
+            raise AssertionError(f"obs {compositor}: spans {span_counts}")
+        m = trainer.obs_metrics
+        mfu = m.mfu.value()
+        if not (trainer.train_cost and trainer.train_cost.flops) or not 0 < mfu < 1:
+            raise AssertionError(f"obs {compositor}: flops {trainer.train_cost}, mfu {mfu}")
+        per_step = 4 if compositor == "dense" else None
+        if per_step is not None and (launches["warp_bilinear"] != per_step * OBS_STEPS
+                                     or launches["warp_bilinear_grad"] != per_step * OBS_STEPS):
+            raise AssertionError(f"obs dense: the counted step did not launch the kernels "
+                                 f"{launches}")
+        row = dict(
+            compositor=compositor, steps=OBS_STEPS, fit_s=fit_s, loss=logged["loss"],
+            step_flops=trainer.train_cost.flops,
+            counted_step_peak_allocated_gb=(None if trainer.train_cost.peak_memory_bytes is None
+                                            else trainer.train_cost.peak_memory_bytes / 1e9),
+            peak_flops=trainer.peak_flops, mfu=mfu, tflops_per_s=m.tflops_per_sec.value(),
+            attribution={r["component"]: {"ms": r["time_ms"], "pct": r["pct"],
+                                          "calls": r["calls"]} for r in table["rows"]},
+            coverage=table["coverage"], profiled_ms=table["total_ms"],
+            kernels_by_component=kernels, host_spans=span_counts, launches=launches)
+        if poke:
+            dumps = flight_dumps(os.path.join(ws, "flight"))
+            if len(dumps) != 1 or not dumps[0].endswith("signal_sigusr1"):
+                raise AssertionError(f"obs dense: SIGUSR1 dumps {dumps}")
+            meta = json.load(open(os.path.join(dumps[0], "meta.json")))
+            memory = meta["device_memory"]
+            if not isinstance(memory, list) or "allocated_bytes.all.current" not in \
+                    memory[0]["memory_stats"]:
+                raise AssertionError(f"obs dense: flight meta without memory stats: {memory}")
+            row["flight_sigusr1"] = {
+                "dump": os.path.relpath(dumps[0], ws), "last_step": meta["last_step"],
+                "allocated_gb": memory[0]["memory_stats"]["allocated_bytes.all.current"] / 1e9,
+                "steps_after_it": trainer.global_step - meta["last_step"]}
+        out["launches"][f"obs_train_{compositor}"] = {
+            "kernels": launches,
+            "sizes": sizes}
+        del trainer
+        torch.cuda.empty_cache()
+        return row
+
+    for compositor in ("dense", "streaming"):
+        emit(info, phase="obs_resilience", part=f"obs_train_{compositor}",
+             **obs_fit(compositor, poke=compositor == "dense"))
+
+    # the dense step with obs off and on, in turns: intervals between step
+    # starts with a sync every step, the first interval of each fit left out;
+    # the batches are made once, in memory, so that the synthetic scene's
+    # numpy (~405 ms a batch) does not set the pace
+    class Batches:
+        def __init__(self, batches):
+            self.batches = batches
+
+        def __len__(self):
+            return len(self.batches)
+
+        def epoch(self, epoch):
+            return iter(self.batches)
+
+    made = list(itertools.islice(build_dataset(
+        train_cfg, "train", train_cfg.data.per_gpu_batch_size).epoch(1), OBS_TIMING_STEPS))
+    timing_trainers = {}
+    intervals: dict[str, list[float]] = {"off": [], "on": []}
+    for mode in OBS_TIMING_FITS:
+        if mode not in timing_trainers:
+            # both with a workspace (its logs and checkpoints): obs alone differs
+            cfg = train_cfg.replace(**{"training.log_interval": 1,
+                                       "obs.enabled": mode == "on"})
+            ws = os.path.join(scratch, f"timing_{mode}")
+            timing_trainers[mode] = (cfg, Trainer(cfg, ws, state_dict=train_state))
+        cfg, trainer = timing_trainers[mode]
+        starts: list[float] = []
+        step = Trainer.step
+
+        def timed_step(batch, trainer=trainer, starts=starts, step=step):
+            starts.append(time.perf_counter())
+            return step(trainer, batch)
+
+        trainer.step = timed_step
+        trainer.fit(Batches(made), max_steps=trainer.global_step + OBS_TIMING_STEPS)
+        intervals[mode].extend(1e3 * (b - a) for a, b in zip(starts[1:], starts[2:]))
+    median = {k: statistics.median(v) for k, v in intervals.items()}
+    overhead = median["on"] / median["off"] - 1.0
+    del timing_trainers
+    torch.cuda.empty_cache()
+    if overhead > 0.03:
+        raise AssertionError(f"obs on costs {overhead:.1%} of the dense step: {median}")
+    emit(info, phase="obs_resilience", part="obs_overhead", order=list(OBS_TIMING_FITS),
+         step_ms_median=median, step_ms_runs=intervals, obs_on_over_off=overhead,
+         dense_step_ms_earlier=DENSE_STEP_MS_PERF_MD)
+
+    # a preempted CLI run: SIGTERM after step 3 saves it, dumps, terminates
+    ws = os.path.join(scratch, "preempted")
+    extra = {"data.name": "synthetic", "obs.enabled": True, "training.log_interval": 1}
+    env = dict(os.environ, MINE_TPU_FAULTS="sigterm@step=3")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mine_tpu_torch.train", "--workspace", ws,
+                           "--max_steps", "5", "--extra_config", json.dumps(extra)],
+                          cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    dumps = flight_dumps(os.path.join(ws, "flight"))
+    if proc.returncode != -signal.SIGTERM or ckpt.all_steps(ws) != [3] \
+            or not any(d.endswith("signal_sigterm") for d in dumps):
+        raise AssertionError(f"sigterm@step=3: exit {proc.returncode}, steps "
+                             f"{ckpt.all_steps(ws)}, dumps {dumps}\n{proc.stderr[-3000:]}")
+    ckpt.verify_checkpoint_integrity(ws, 3)
+    saved = ckpt.load(ws, 3)
+    p_cfg = ckpt.load_paired_config(ws)
+    resumed = Trainer(p_cfg, ws, state_dict=train_state)
+    ds = build_dataset(p_cfg, "train", p_cfg.data.per_gpu_batch_size)
+    resumed._start(len(ds))
+    state = resumed.state()
+    same = {
+        "global_step": state["global_step"] == saved["global_step"] == 3,
+        "model_and_bn_buffers": all(torch.equal(state["model"][n].cpu(), saved["model"][n])
+                                    for n in saved["model"]),
+        "optimizer": all(torch.equal(x[n].cpu(), y[n].cpu()) for x, y in zip(
+            state["optimizer"]["state"].values(), saved["optimizer"]["state"].values())
+            for n in x),
+        "scheduler": state["scheduler"] == saved["scheduler"],
+        "generators": all(torch.equal(state["generators"][n], saved["generators"][n])
+                          for n in saved["generators"]),
+    }
+    if not all(same.values()):
+        raise AssertionError(f"the preempted step does not restore bit-equal: {same}")
+    logged = resumed.fit(ds, max_steps=5)
+    if resumed.global_step != 5 or not math.isfinite(logged["loss"]):
+        raise AssertionError(f"the resumed run: step {resumed.global_step}, {logged}")
+    emit(info, phase="obs_resilience", part="preempt_sigterm",
+         command="MINE_TPU_FAULTS=sigterm@step=3 python -m mine_tpu_torch.train --max_steps 5",
+         exit_code=proc.returncode, cli_s=cli_s, checkpoints=[3], sha256_ok=True,
+         flight_dumps=[os.path.relpath(d, ws) for d in dumps], restored_bit_equal=same,
+         resumed_to=resumed.global_step, loss=logged["loss"])
+    del resumed, saved, state
+    torch.cuda.empty_cache()
+
+    # the sentinel's skip and the loader's retry on the LLFF fixture's recipe
+    l_cfg = ckpt.load_paired_config(llff_ws).replace(**{
+        "resilience.sentinel_policy": "skip", "data.loader_retries": 1,
+        "training.log_interval": 1})
+    l_ds = build_dataset(l_cfg, "train", l_cfg.data.per_gpu_batch_size)
+    # the first 3 batches of a clean run, across epochs (2 steps an epoch)
+    clean = list(itertools.islice(itertools.chain.from_iterable(
+        l_ds.epoch(e) for e in itertools.count(1)), 3))
+    trainer = Trainer(l_cfg, state_dict=train_state)
+    seen, params, losses = [], {}, {}
+    step = Trainer.step
+
+    def record(batch):
+        seen.append({k: np.asarray(v).copy() for k, v in batch.items()})
+        result = step(trainer, batch)
+        params[trainer.global_step] = {k: v.detach().clone()
+                                       for k, v in trainer.model.state_dict().items()}
+        losses[trainer.global_step] = float(result["loss"])
+        return result
+
+    trainer.step = record
+    chaos.install("nan_loss@step=2,loader_raise@batch=2")
+    kw.reset_launches()
+    try:
+        trainer.fit(l_ds, max_steps=3)
+    finally:
+        pending = chaos.active().pending()
+        chaos.uninstall()
+    retries = trainer.obs_metrics.data_retries.value(process_index="0")
+    kept = all(torch.equal(params[2][k], params[1][k]) for k in params[1])
+    equal = [all(np.array_equal(s[k], c[k]) for k in c if not (i == 1 and k == "src_img"))
+             for i, (s, c) in enumerate(zip(seen, clean))]
+    poisoned = bool(np.isnan(seen[1]["src_img"]).all())
+    if pending or retries != 1 or not kept or len(equal) != 3 or not all(equal) or not poisoned \
+            or math.isfinite(losses[2]) or not math.isfinite(losses[3]) \
+            or trainer.sentinel.skipped_updates != 1:
+        raise AssertionError(f"nan_loss/loader_raise: pending {pending}, retries {retries}, "
+                             f"params kept {kept}, batches equal {equal}, losses {losses}")
+    emit(info, phase="obs_resilience", part="sentinel_and_loader",
+         faults="nan_loss@step=2,loader_raise@batch=2", data="data_llff fixture",
+         losses=losses, step2_params_equal_step1=kept, skipped_updates=1,
+         data_retries_total=retries, batches_equal_clean_run=equal,
+         launches=dict(kw.launches))
+    del trainer, params
+    torch.cuda.empty_cache()
+
+    # the serving CLI: cost gauges, an injected predict failure, a corrupt
+    # swap refused, a SIGUSR1 flight dump
+    t0 = time.perf_counter()
+    pool = SubprocessPool(
+        llff_ws, server_args=["--device", dev.type, "--peak-flops", "989e12"],
+        env=dict(os.environ, MINE_TPU_FAULTS="predict_raise@predict=1,corrupt_ckpt@swap=1"),
+        spawn_timeout_s=300.0)
+    replica, base = pool.spawn()
+    pid = pool.pid(replica)
+    try:
+        bind_s = time.perf_counter() - t0
+        buf = io.BytesIO()
+        Image.fromarray(image).save(buf, format="PNG")
+        png = {"data": buf.getvalue(), "headers": {"Content-Type": "image/png"}}
+
+        def metric(text: str, name: str) -> float | None:
+            for ln in text.splitlines():
+                if ln.startswith(name + " ") or ln.startswith(name + "{"):
+                    return float(ln.rsplit(" ", 1)[1])
+            return None
+
+        code1, body1 = http_request(base, "/predict", timeout=300, **png)
+        code2, body2 = http_request(base, "/predict", timeout=300, **png)
+        deadline = time.monotonic() + 30
+        while True:  # a scrape sets the rate gauges once the predict's events are done
+            _, text = http_request(base, "/metrics")
+            text = text.decode()
+            if metric(text, "mine_serve_mfu") is not None or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+        flops = metric(text, 'mine_serve_step_flops{kind="predict"}')
+        mfu = metric(text, "mine_serve_mfu")
+        failures = metric(text, 'mine_serve_engine_failures_total{kind="predict"}')
+        _, health0 = http_request(base, "/healthz")
+        code_swap, body_swap = http_request(base, "/admin/swap", data=b'{"wait": true}',
+                                            headers={"Content-Type": "application/json"},
+                                            timeout=300)
+        swap = json.loads(body_swap)
+        code_hit, body_hit = http_request(base, "/predict", timeout=300, **png)
+        _, health1 = http_request(base, "/healthz")
+        health0, health1 = json.loads(health0), json.loads(health1)
+        os.kill(pid, signal.SIGUSR1)
+        deadline = time.monotonic() + 60
+        while not [d for d in flight_dumps(os.path.join(llff_ws, "flight"))
+                   if f"pid{pid}" in d and d.endswith("signal_sigusr1")]:
+            if time.monotonic() > deadline:
+                raise AssertionError("the serving CLI left no SIGUSR1 flight dump")
+            time.sleep(0.1)
+        dump = [d for d in flight_dumps(os.path.join(llff_ws, "flight"))
+                if f"pid{pid}" in d][0]
+        code_after, _ = http_request(base, "/healthz")
+    finally:
+        pool.retire(replica)
+    meta = json.load(open(os.path.join(dump, "meta.json")))
+    checks = {
+        "predict_raise_5xx": code1 >= 500 and "predict_raise" in body1.decode(),
+        "breaker_counted_it": failures == 1.0,
+        "next_predict_ok": code2 == 200 and not json.loads(body2)["cached"],
+        "step_flops": bool(flops and flops > 1e11),
+        "mfu_finite": mfu is not None and 0 < mfu < 1,
+        "swap_refused_corrupt": code_swap == 422 and swap.get("reason") == "corrupt",
+        "old_weights_serve": (code_hit == 200 and json.loads(body_hit)["cached"]
+                              and health1["weight_generation"] == health0["weight_generation"]
+                              and health1["checkpoint_step"] == health0["checkpoint_step"]),
+        "flight_dump_memory_stats": isinstance(meta["device_memory"], list),
+        "alive_after_sigusr1": code_after == 200,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"serving CLI faults: {checks}, swap {swap}, "
+                             f"flops {flops}, mfu {mfu}")
+    emit(info, phase="obs_resilience", part="serve_cli",
+         command="MINE_TPU_FAULTS=predict_raise@predict=1,corrupt_ckpt@swap=1 python -m "
+                 "mine_tpu_torch.serving --workspace <data_llff> --port 0 --peak-flops 989e12",
+         bind_s=bind_s, checks=checks, predict_step_flops=flops, predict_mfu=mfu,
+         predict_tflops_per_s=metric(text, "mine_serve_achieved_tflops_per_sec"),
+         swap=swap, flight_dump=os.path.relpath(dump, llff_ws))
+
+    # what the cost gauges add to a /predict miss: engine.predict on the
+    # served workspace with metrics (two timing events, read later) and
+    # without, in turns, the card idle before each call; each call's time
+    # to return and, after a synchronize, to completion on the card
+    s_cfg, s_state, s_step = ckpt.load_for_serving(llff_ws)
+    metrics = ServingMetrics()
+    engine = RenderEngine(s_cfg, s_state, checkpoint_step=s_step, metrics=metrics,
+                          device=dev, peak_flops_override=989e12)
+    for _ in range(2):  # the first predict is the counted one
+        engine.predict(image)
+    predict_ms: dict[str, dict[str, list[float]]] = {
+        mode: {"return": [], "done": []} for mode in ("metrics", "no_metrics")}
+    for i in range(2 * PREDICT_COST_TURNS):
+        mode = ("metrics", "no_metrics")[i % 2]
+        engine.metrics = metrics if mode == "metrics" else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.predict(image)
+        t_return = time.perf_counter()
+        torch.cuda.synchronize()
+        predict_ms[mode]["return"].append(1e3 * (t_return - t0))
+        predict_ms[mode]["done"].append(1e3 * (time.perf_counter() - t0))
+    engine.metrics = metrics
+    engine.publish_cost()
+    median = {mode: {k: statistics.median(v) for k, v in runs.items()}
+              for mode, runs in predict_ms.items()}
+    engine_mfu = metrics.mfu.value()
+    if not 0 < engine_mfu < 1:
+        raise AssertionError(f"engine predict MFU {engine_mfu}")
+    emit(info, phase="obs_resilience", part="predict_cost_gauges", tier=engine.cache_tier,
+         prune_eps=engine.prune_eps, predict_ms_median=median, predict_ms_runs=predict_ms,
+         return_metrics_over_no_metrics=(median["metrics"]["return"]
+                                         / median["no_metrics"]["return"] - 1.0),
+         predict_step_flops=engine.bucket().predict_cost.flops, predict_mfu=engine_mfu,
+         predict_tflops_per_s=metrics.achieved_tflops.value(),
+         phase_s=time.perf_counter() - t_phase)
+    del engine, s_state
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a "
@@ -2261,7 +2695,10 @@ def main() -> int:
     serve = serve_phases(info, dev, llff_ws, images)
     fleet = serve_fleet_phase(info, dev, llff_ws, images[0])
 
-    # 9. timings
+    # 9. observability and resilience of training and serving
+    obs = obs_resilience_phase(info, dev, train_cfg, train_state, llff_ws, images[0])
+
+    # 10. timings
     def grid_of(cx, cy, hh, ww):
         return torch.stack([(cx + 0.5) / (0.5 * ww) - 1.0, (cy + 0.5) / (0.5 * hh) - 1.0], -1)
 
@@ -2302,7 +2739,7 @@ def main() -> int:
          median={k: statistics.median(v) for k, v in spread.items()}, runs=spread,
          share_of_bound=warp_rows["dense"]["bound_ms"] / statistics.median(spread["ms"]))
     paths = {**streaming["launches"], **data_launches, **serve["launches"],
-             **fleet["launches"]}
+             **fleet["launches"], **obs["launches"]}
 
     def launches_of(name: str, size_class: str) -> dict:
         """The launches of `name` at one TPU size class on each main path: the

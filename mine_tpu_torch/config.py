@@ -1,15 +1,14 @@
 """The configuration the port reads: the `data`, `lr`, `model`, `mpi`,
-`loss`, `training`, `mesh` and `serving` groups of mine_tpu/config.py's
-Config, the training sentinel's and the serving stack's `resilience.*` keys
-and `obs.trace_buffer_spans`, with the same dot-keys and defaults.
+`loss`, `training`, `mesh`, `resilience`, `obs` and `serving` groups of
+mine_tpu/config.py's Config, with the same dot-keys and defaults.
 
 Config files are the JAX package's flat dot-key YAML (mine_tpu/configs/*.yaml
-are read as data files). Keys of the groups not ported (parallel) and the
-other keys of the partly ported groups (obs, resilience) belong to parts not
-ported yet and are skipped on load; an unknown key inside a ported group is
-an error, as in the JAX loader. Keys the port reads but does not honour yet
-raise where they would take effect (`unsupported_training_options`, and the
-serving engine's coarse-to-fine check). `save_config` writes the flat dot-key YAML
+are read as data files). Keys of the group not ported (parallel) belong to a
+part not ported yet and are skipped on load; an unknown key inside a ported
+group is an error, as in the JAX loader. Keys the port reads but does not
+honour yet raise where they would take effect (`unsupported_training_options`,
+among them the `resilience.multihost_*` keys, and the serving engine's
+coarse-to-fine check). `save_config` writes the flat dot-key YAML
 the loader reads (the workspace's params.yaml), which the JAX loader reads
 too.
 """
@@ -119,6 +118,9 @@ class ResilienceConfig:
     sentinel_spike_window: int = 32
     sentinel_spike_min_history: int = 5
     max_rollbacks: int = 2
+    # SIGTERM/SIGUSR2 save a checkpoint of the last completed step before
+    # the flight recorder's dump-then-terminate runs (resilience/preempt.py)
+    preempt_save: bool = True
     # serving admission control (serving/batcher.py, serving/server.py):
     # the render queue's bound (0 = unbounded), the Retry-After of a 503,
     # the default per-render deadline
@@ -131,12 +133,36 @@ class ResilienceConfig:
     breaker_failure_threshold: int = 5
     breaker_reset_s: float = 30.0
     breaker_reset_jitter: float = 0.2
+    # the cross-host watchdog and retrying bring-up of multi-host training
+    # (mine_tpu/resilience/multihost.py): read, and refused away from these
+    # defaults until ROADMAP queue 1 item 6 (unsupported_training_options)
+    multihost_watchdog_s: float = 0.0
+    multihost_heartbeat_dir: str = ""
+    multihost_bringup_attempts: int = 3
+    multihost_bringup_backoff_s: float = 2.0
 
 
 @dataclass(frozen=True)
 class ObsConfig:
-    # request-lifecycle span ring of the server (obs/trace.py)
+    # master switch of training's observability: host spans, the counted
+    # step and the MFU gauges, the flight recorder's signal handlers
+    enabled: bool = False
+    # bounded span ring (training's and the server's, obs/trace.py)
     trace_buffer_spans: int = 4096
+    # torch.profiler window: start `profile_start_offset` steps after
+    # (re)start, run `profile_steps` steps (0 = no device trace), then the
+    # component attribution (obs/attrib.py)
+    profile_start_offset: int = 5
+    profile_steps: int = 0
+    # stall watchdog: no completed step for this many seconds => a flight
+    # dump (obs/flight.py); 0 disables
+    flight_watchdog_s: float = 0.0
+    flight_last_k_spans: int = 256
+    # one counted step (obs/cost.py) and the MFU gauges
+    cost_enabled: bool = True
+    # the peak FLOP/s MFU divides by when the card has no table entry
+    # (obs/cost.py); 0 = the table
+    peak_flops_override: float = 0.0
 
 
 @dataclass(frozen=True)
@@ -200,8 +226,6 @@ class Config:
 
 
 _GROUPS = {f.name: f.default_factory for f in dataclasses.fields(Config)}
-# groups of which the port has only some keys: the others are skipped on load
-_PARTIAL_GROUPS = frozenset({"resilience", "obs"})
 
 # keys the JAX loader tolerates in archived params.yaml files
 _RETIRED_KEYS = frozenset({
@@ -278,8 +302,7 @@ def load_config(*yaml_paths: str,
     for layer in layers:
         for key, value in layer.items():
             group = key.partition(".")[0]
-            if key in _RETIRED_KEYS or group not in _GROUPS \
-                    or (group in _PARTIAL_GROUPS and key not in flat):
+            if key in _RETIRED_KEYS or group not in _GROUPS:
                 continue
             if key not in flat:
                 raise KeyError(f"unknown config key: {key!r}")
@@ -310,4 +333,11 @@ def unsupported_training_options(cfg: Config) -> list[str]:
     if mesh.data_parallel not in (-1, 1) or mesh.fsdp_parallel > 1 or mesh.plane_parallel > 1:
         found.append(f"mesh sizes {dataclasses.astuple(mesh)} wait for ROADMAP queue 1 "
                      "item 6 (parallel/)")
+    defaults = ResilienceConfig()
+    for name in ("multihost_watchdog_s", "multihost_heartbeat_dir",
+                 "multihost_bringup_attempts", "multihost_bringup_backoff_s"):
+        value = getattr(cfg.resilience, name)
+        if value != getattr(defaults, name):
+            found.append(f"resilience.{name}={value!r}: multi-host training waits for "
+                         "ROADMAP queue 1 item 6 (parallel/, resilience/multihost.py)")
     return found

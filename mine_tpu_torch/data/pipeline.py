@@ -1,5 +1,5 @@
 """Host-side input-pipeline overlap (the port's own copy of
-mine_tpu/data/pipeline.py, without its chaos seam).
+mine_tpu/data/pipeline.py).
 
 A daemon thread keeps up to `depth` items ready ahead of the consumer, each
 produced (and passed through the optional `transfer` callable) on that
@@ -12,7 +12,8 @@ are covered, both with exponential backoff + jitter on transient errors
 (TransientLoaderError, OSError, TimeoutError), re-raising only after
 `retries` retries, with `on_retry` ticking the caller's counter per attempt:
 
-  * the per-item stage (the `transfer` callable), always;
+  * the per-item stage (the `transfer` callable and the chaos seam named by
+    `fault_seam`, resilience/chaos.py), always;
   * the source-iterator PULL (`next()`), only when the iterable declares
     `retry_safe_iter = True`. A Python generator closes on raise, so
     re-pulling a dead generator returns StopIteration and would silently
@@ -28,6 +29,8 @@ import random
 import threading
 import time
 from typing import Any, Callable, Iterable, Iterator
+
+from mine_tpu_torch.resilience import chaos
 
 
 class TransientLoaderError(RuntimeError):
@@ -50,7 +53,7 @@ class LoaderRetriesExhausted(RuntimeError):
 
 # what the bounded retry treats as transient; anything else re-raises at
 # the consumer at once (a shape bug retried 3 times is 3x the noise)
-_RETRYABLE = (TransientLoaderError, OSError, TimeoutError)
+_RETRYABLE = (TransientLoaderError, chaos.ChaosFault, OSError, TimeoutError)
 
 
 class _End:
@@ -95,18 +98,26 @@ def prefetch(
     retries: int = 0,
     retry_base_delay_s: float = 0.05,
     on_retry: Callable[[int, BaseException], None] | None = None,
+    fault_seam: str | None = None,
 ) -> Iterator[Any]:
     """Yield the items of `iterable`, produced (and `transfer`ed) up to
     `depth` items ahead on a background thread. An exception from the
     producer re-raises at the consumer's next pull, after `retries` bounded
-    retries of a transient error (module docstring). If the consumer
-    abandons the generator early (close, or garbage collection), the
-    producer thread is told to stop and exits at its next put."""
+    retries of a transient error (module docstring). `fault_seam` names the
+    chaos seam consulted once per produced item (None: no seam). If the
+    consumer abandons the generator early (close, or garbage collection),
+    the producer thread is told to stop and exits at its next put."""
 
     def produce(item: Any) -> Any:
-        if transfer is None:
+        if transfer is None and fault_seam is None:
             return item
-        return _retrying(lambda: transfer(item), retries, retry_base_delay_s, on_retry)
+
+        def stage():
+            if fault_seam is not None:
+                chaos.maybe_raise(fault_seam)
+            return transfer(item) if transfer is not None else item
+
+        return _retrying(stage, retries, retry_base_delay_s, on_retry)
 
     # pull-retry only for iterables that declare their __next__ re-callable
     # after a failure (module docstring: a dead generator would truncate)

@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from mine_tpu_torch.models.decoder import MPIDecoder, run_checkpointed
+from mine_tpu_torch.obs.attrib import scope
 from mine_tpu_torch.models.encoder import ResNetEncoder
 
 
@@ -39,8 +40,11 @@ class MPINetwork(nn.Module):
 
     def forward(self, src_imgs: torch.Tensor, disparity: torch.Tensor,
                 sigma_keep: torch.Tensor | None = None) -> dict[int, torch.Tensor]:
-        features = run_checkpointed(self.remat, self.backbone, src_imgs)
-        return self.decoder(features, disparity, sigma_keep, remat=self.remat)
+        # component scopes (obs/attrib.py), the JAX package's named_scopes
+        with scope("encoder"):
+            features = run_checkpointed(self.remat, self.backbone, src_imgs)
+        with scope("decoder"):
+            return self.decoder(features, disparity, sigma_keep, remat=self.remat)
 
 
 @torch.no_grad()

@@ -217,6 +217,10 @@ class Tracer:
             return
         self._record(name, cat, t0, t1, args, depth=0)
 
+    def active_spans(self) -> list[str]:
+        """This thread's open span names (outer -> inner)."""
+        return list(self._stack())
+
     # -- reading -------------------------------------------------------------
 
     def __len__(self) -> int:

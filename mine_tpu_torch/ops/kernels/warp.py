@@ -42,6 +42,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from mine_tpu_torch.ops.geometry import apply_3x3, homogeneous_pixel_grid
+from mine_tpu_torch.obs.attrib import scope
 from mine_tpu_torch.ops.kernels import build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -349,9 +350,12 @@ class WarpBilinear(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         coords_x, coords_y, src = ctx.saved_tensors
-        grad_src, grad_x, grad_y = warp_bilinear_grad(
-            g.contiguous(), coords_x, coords_y, *ctx.src_hw, src
-        )
+        # scoped where it runs: on the card, on the autograd engine's thread,
+        # outside every forward scope (obs/attrib.py)
+        with scope("homography_warp"):
+            grad_src, grad_x, grad_y = warp_bilinear_grad(
+                g.contiguous(), coords_x, coords_y, *ctx.src_hw, src
+            )
         return (grad_src if ctx.needs_input_grad[0] else None,
                 grad_x if ctx.needs_input_grad[1] else None,
                 grad_y if ctx.needs_input_grad[2] else None)

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from mine_tpu_torch.obs.attrib import scope, scoped
 from mine_tpu_torch.ops.geometry import (
     apply_3x3,
     homogeneous_pixel_grid,
@@ -40,6 +41,7 @@ def _shifted_exclusive(x: torch.Tensor, fill: float = 1.0) -> torch.Tensor:
     return torch.cat([torch.full_like(x[:, :1], fill), x[:, :-1]], dim=1)
 
 
+@scoped("composite")
 def alpha_composition(alpha: torch.Tensor, value: torch.Tensor):
     """Over-compositing of K planes, nearest first. alpha (B, K, H, W, 1),
     value (B, K, H, W, C) -> composed (B, H, W, C), weights (B, K, H, W, 1)."""
@@ -48,6 +50,7 @@ def alpha_composition(alpha: torch.Tensor, value: torch.Tensor):
     return torch.sum(value * weights, dim=1), weights
 
 
+@scoped("composite")
 def weighted_sum_mpi(rgb, xyz, weights, is_bg_depth_inf: bool = False):
     """Expectation of rgb and depth under compositing weights.
     rgb/xyz (B, S, H, W, 3); weights (B, S, H, W, 1)."""
@@ -61,6 +64,7 @@ def weighted_sum_mpi(rgb, xyz, weights, is_bg_depth_inf: bool = False):
     return rgb_out, depth_out
 
 
+@scoped("composite")
 def plane_volume_rendering(rgb, sigma, xyz, is_bg_depth_inf: bool = False):
     """Volume rendering across depth planes: per-pixel inter-plane distances
     turn sigma into transparency exp(-sigma * dist); transmittance is a
@@ -104,6 +108,7 @@ def _src_dists(mpi_disparity, k_inv, h: int, w: int) -> torch.Tensor:
     return torch.cat([dist, torch.full_like(dist[:, :1], BG_DIST)], dim=1)
 
 
+@scoped("composite")
 def weighted_sum_src(rgb, mpi_disparity, weights, is_bg_depth_inf: bool = False):
     """weighted_sum_mpi at the source pose, where per-plane z is the plane
     depth 1/disparity (normalised intrinsics, K[2,2] = 1)."""
@@ -117,6 +122,7 @@ def weighted_sum_src(rgb, mpi_disparity, weights, is_bg_depth_inf: bool = False)
     return rgb_out, depth_out
 
 
+@scoped("composite")
 def render_src(rgb, sigma, mpi_disparity, k_inv, use_alpha: bool = False,
                is_bg_depth_inf: bool = False):
     """`render` at the source pose from disparities + intrinsics alone.
@@ -137,6 +143,7 @@ def render_src(rgb, sigma, mpi_disparity, k_inv, use_alpha: bool = False,
     return rgb_out, depth_out, transparency_acc, weights
 
 
+@scoped("composite")
 def plane_contributions(sigma, mpi_disparity, k_inv, use_alpha: bool = False,
                         vis_dilate_px: int = 8) -> torch.Tensor:
     """Per-plane maximum compositing weight, the pruning quantity of the
@@ -196,6 +203,7 @@ def _plane_coords(mpi_disparity_src, g_tgt_src, k_src_inv, k_tgt, h: int, w: int
     return src_xy, valid, xyz
 
 
+@scoped("homography_warp")
 def warp_mpi_to_tgt(mpi_rgb_src, mpi_sigma_src, mpi_disparity_src, g_tgt_src,
                     k_src_inv, k_tgt):
     """Homography-warp every source plane into the target camera. Only rgb +
@@ -247,6 +255,7 @@ def streaming_inputs(mpi_rgb_src, mpi_sigma_src, mpi_disparity_src, g_tgt_src,
             coords[..., 1].contiguous(), dist.contiguous(), xyz[..., 2].contiguous())
 
 
+@scoped("homography_warp")
 def streaming_matrices(mpi_disparity_src, g_tgt_src, k_src_inv, k_tgt):
     """warp_composite's per-plane matrices for one target render, built as
     _plane_coords builds them: h_src_tgt (B, S, 3, 3), the inverse plane
@@ -290,6 +299,7 @@ def _chunk_size(s: int, requested: int) -> int:
     return 1
 
 
+@scoped("homography_warp")
 def plane_tgt_xyz(depth, g_tgt_src, k_src_inv, k_tgt, h: int, w: int) -> torch.Tensor:
     """Target-frame xyz of ONE plane per batch item at its own warp coords,
     depth (B,) -> (B, H, W, 3): the same formulas as warp_mpi_to_tgt's xyz,
@@ -319,29 +329,34 @@ def _stream_chunk(rgb, sigma, disparity, next_depth, t_acc, g_tgt_src, k_src_inv
     the transmittance leaving it."""
     tgt_rgb, tgt_sigma, tgt_xyz, valid = warp_mpi_to_tgt(
         rgb, sigma, disparity, g_tgt_src, k_src_inv, k_tgt)
-    if use_alpha:
-        alpha = tgt_sigma
-        trans_local = torch.cumprod(1.0 - alpha, dim=1)
-    else:
-        h, w = rgb.shape[2:4]
-        xyz_next = plane_tgt_xyz(next_depth, g_tgt_src, k_src_inv, k_tgt, h, w)
-        diff = torch.diff(torch.cat([tgt_xyz, xyz_next[:, None]], dim=1), dim=1)
-        if bg_last:
-            # the background slot's diff is replaced BEFORE the norm: the
-            # norm's gradient at the zero vector is 0/0
-            last = torch.zeros((1, rgb.shape[1], 1, 1, 1), dtype=torch.bool, device=rgb.device)
-            last[:, -1] = True
-            diff = torch.where(last, 1.0, diff)
-            dist = torch.where(last, BG_DIST, torch.linalg.vector_norm(diff, dim=-1, keepdim=True))
+    # everything past the warp is compositing math (the warp and the halo
+    # plane carry their own homography_warp scope)
+    with scope("composite"):
+        if use_alpha:
+            alpha = tgt_sigma
+            trans_local = torch.cumprod(1.0 - alpha, dim=1)
         else:
-            dist = torch.linalg.vector_norm(diff, dim=-1, keepdim=True)
-        transparency = torch.exp(-tgt_sigma * dist)
-        alpha = 1.0 - transparency
-        trans_local = torch.cumprod(transparency + 1.0e-6, dim=1)
-    weights = t_acc[:, None] * _shifted_exclusive(trans_local) * alpha
-    return (torch.sum(weights * tgt_rgb, dim=1), torch.sum(weights * tgt_xyz[..., 2:3], dim=1),
-            torch.sum(weights, dim=1), torch.sum(valid.to(rgb.dtype), dim=1),
-            t_acc * trans_local[:, -1])
+            h, w = rgb.shape[2:4]
+            xyz_next = plane_tgt_xyz(next_depth, g_tgt_src, k_src_inv, k_tgt, h, w)
+            diff = torch.diff(torch.cat([tgt_xyz, xyz_next[:, None]], dim=1), dim=1)
+            if bg_last:
+                # the background slot's diff is replaced BEFORE the norm: the
+                # norm's gradient at the zero vector is 0/0
+                last = torch.zeros((1, rgb.shape[1], 1, 1, 1), dtype=torch.bool,
+                                   device=rgb.device)
+                last[:, -1] = True
+                diff = torch.where(last, 1.0, diff)
+                dist = torch.where(last, BG_DIST,
+                                   torch.linalg.vector_norm(diff, dim=-1, keepdim=True))
+            else:
+                dist = torch.linalg.vector_norm(diff, dim=-1, keepdim=True)
+            transparency = torch.exp(-tgt_sigma * dist)
+            alpha = 1.0 - transparency
+            trans_local = torch.cumprod(transparency + 1.0e-6, dim=1)
+        weights = t_acc[:, None] * _shifted_exclusive(trans_local) * alpha
+        return (torch.sum(weights * tgt_rgb, dim=1),
+                torch.sum(weights * tgt_xyz[..., 2:3], dim=1), torch.sum(weights, dim=1),
+                torch.sum(valid.to(rgb.dtype), dim=1), t_acc * trans_local[:, -1])
 
 
 def _chunk_args(mpi_rgb, mpi_sigma, disparity, chunk: int, k: int):
@@ -396,8 +411,10 @@ class RenderTgtStreaming(torch.autograd.Function):
                 mpi_rgb, mpi_sigma, disparity, g_tgt_src, k_src_inv, k_tgt, True, chunk,
                 mpi_rgb.shape[1] // chunk)
         else:
-            acc = warp_composite(mpi_rgb.contiguous(), mpi_sigma.contiguous(), *streaming_matrices(
-                disparity, g_tgt_src, k_src_inv, k_tgt)).permute(0, 2, 3, 1)
+            matrices = streaming_matrices(disparity, g_tgt_src, k_src_inv, k_tgt)
+            with scope("composite"):
+                acc = warp_composite(mpi_rgb.contiguous(), mpi_sigma.contiguous(),
+                                     *matrices).permute(0, 2, 3, 1)
             rgb, z, wsum, mask = acc[..., 0:3], acc[..., 3:4], acc[..., 4:5], acc[..., 5]
         ctx.mark_non_differentiable(mask)
         return rgb, z, wsum, mask
@@ -458,10 +475,15 @@ def render_tgt_rgb_depth_streaming(mpi_rgb_src, mpi_sigma_src, mpi_disparity_src
     operands = (mpi_rgb_src, mpi_sigma_src, mpi_disparity_src, g_tgt_src, k_src_inv, k_tgt)
     if use_alpha or (torch.is_grad_enabled() and any(t.requires_grad for t in operands)):
         chunk = _chunk_size(mpi_rgb_src.shape[1], chunk_planes)
-        rgb, z, wsum, mask = RenderTgtStreaming.apply(*operands, use_alpha, chunk)
+        # the backward's ops outside the chunk scopes (its sweep's glue, the
+        # gradient slabs) take this forward op's scope
+        with scope("composite"):
+            rgb, z, wsum, mask = RenderTgtStreaming.apply(*operands, use_alpha, chunk)
     else:
-        acc = warp_composite(mpi_rgb_src.contiguous(), mpi_sigma_src.contiguous(),
-                             *streaming_matrices(mpi_disparity_src, g_tgt_src, k_src_inv, k_tgt))
+        matrices = streaming_matrices(mpi_disparity_src, g_tgt_src, k_src_inv, k_tgt)
+        with scope("composite"):
+            acc = warp_composite(mpi_rgb_src.contiguous(), mpi_sigma_src.contiguous(),
+                                 *matrices)
         # (B, 7, H, W): rgb sums (3), z sum, weight sum, valid count, transmittance
         acc = acc.permute(0, 2, 3, 1)
         rgb, z, wsum, mask = acc[..., 0:3], acc[..., 3:4], acc[..., 4:5], acc[..., 5]

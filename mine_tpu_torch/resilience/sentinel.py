@@ -1,6 +1,7 @@
 """Training sentinel: detect a poisoned run and apply a recovery policy (the
 port's copy of mine_tpu/resilience/sentinel.py, with plain counters in place
-of the metrics registry and no flight recorder or chaos seam).
+of the metrics registry). A trip dumps the flight recorder when one is
+given; the `spike_loss` chaos seam inflates the logged loss.
 
 Detectors
   finiteness  every train step computes `isfinite(loss) & isfinite(|grad|)`
@@ -33,6 +34,8 @@ from typing import Any
 
 import torch
 
+from mine_tpu_torch.resilience import chaos
+
 POLICIES = ("off", "skip", "rollback", "abort")
 
 
@@ -53,7 +56,7 @@ class TrainingSentinel:
     """The per-run sentinel: counters `nonfinite_steps`, `skipped_updates`,
     `rollbacks` and `trips` ({(reason, action): n})."""
 
-    def __init__(self, res_cfg: Any, logger: logging.Logger):
+    def __init__(self, res_cfg: Any, logger: logging.Logger, flight: Any | None = None):
         if res_cfg.sentinel_policy not in POLICIES:
             raise ValueError(f"resilience.sentinel_policy={res_cfg.sentinel_policy!r} "
                              f"must be one of {POLICIES}")
@@ -61,6 +64,7 @@ class TrainingSentinel:
         self.spike_factor = float(res_cfg.sentinel_spike_factor)
         self.spike_min_history = int(res_cfg.sentinel_spike_min_history)
         self.logger = logger
+        self.flight = flight  # obs/flight.py FlightRecorder: a trip dumps it
         self._pending: list[tuple[int, torch.Tensor]] = []
         # a bad vet() verdict parks here until the next check() applies it
         self._deferred_reason: str | None = None
@@ -116,6 +120,10 @@ class TrainingSentinel:
         reason, self._deferred_reason = self._deferred_reason, None
         reason = self._resolve_flags() or reason
         if host_loss is not None:
+            if chaos.should("spike_loss", at=step):
+                # observation-level injection: a deterministic genuine spike
+                # cannot be induced from data alone (resilience/chaos.py)
+                host_loss = host_loss * max(self.spike_factor, 1.0) * 100.0
             if not math.isfinite(host_loss):
                 reason = reason or "nonfinite"
             else:
@@ -139,6 +147,10 @@ class TrainingSentinel:
 
     def _trip(self, reason: str, step: int, host_loss: float | None) -> None:
         self.trips[reason, self.policy] += 1
+        if self.flight is not None:
+            self.flight.dump(f"sentinel_{reason}", extra={
+                "sentinel_step": step, "sentinel_loss": host_loss,
+                "sentinel_action": self.policy})
         msg = (f"sentinel trip at step {step}: reason={reason} action={self.policy} "
                f"loss={host_loss}")
         if self.policy == "rollback":

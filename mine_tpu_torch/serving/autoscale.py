@@ -26,6 +26,10 @@ arcs and a cold arc is an encoder bill the fleet already paid once:
          survivor ring, then it leaves the ring and is retired. A handoff
          past `drain_timeout_s` is abandoned; the drain still completes.
 
+Chaos seams (resilience/chaos.py): `join_stall` raises inside the Nth join's
+pre-warm (the joiner is retired, membership unchanged), `drain_timeout`
+inside the Nth drain's handoff (the drain completes regardless).
+
 Replicas live behind a pool: InProcessPool (ServingApps behind their own
 HTTP servers in this process) or SubprocessPool (`python -m
 mine_tpu_torch.serving` replica processes), both with
@@ -63,6 +67,7 @@ from mine_tpu_torch.obs.slo import (
     degradation_from_exposition,
     p95_from_exposition,
 )
+from mine_tpu_torch.resilience import chaos
 from mine_tpu_torch.serving.fleet import (
     FleetApp,
     HashRing,
@@ -195,16 +200,19 @@ class SubprocessPool:
     spawn() parses the bound URL off the server's startup line; the rest
     drives the replica's admin surface (/debug/hot_keys, /admin/prewarm,
     /admin/drain, /admin/peers). `server_args` go to every replica's CLI
-    (`--device cpu` off the card)."""
+    (`--device cpu` off the card); `env`, when given, is every replica's
+    environment (a chaos drill's MINE_TPU_FAULTS, for one)."""
 
     def __init__(self, workspace: str, host: str = "127.0.0.1",
                  server_args: list[str] | None = None,
                  name_prefix: str = "s", spawn_timeout_s: float = 120.0,
                  request_timeout_s: float = 10.0,
-                 transport: Callable | None = None):
+                 transport: Callable | None = None,
+                 env: dict[str, str] | None = None):
         self.workspace = workspace
         self.host = host
         self.server_args = list(server_args or [])
+        self.env = None if env is None else dict(env)
         self.name_prefix = name_prefix
         self.spawn_timeout_s = spawn_timeout_s
         self.request_timeout_s = request_timeout_s
@@ -226,7 +234,7 @@ class SubprocessPool:
         ]
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            cwd=_REPO_ROOT,
+            cwd=_REPO_ROOT, env=self.env,
         )
         # a watchdog kills the child if it never prints its bound URL —
         # readline then hits EOF and the spawn fails loudly instead of
@@ -284,6 +292,10 @@ class SubprocessPool:
     def names(self) -> list[str]:
         with self._lock:
             return list(self._order)
+
+    def pid(self, name: str) -> int:
+        with self._lock:
+            return self._procs[name].pid
 
     def urls(self) -> dict[str, str]:
         with self._lock:
@@ -568,6 +580,7 @@ class AutoscaleController:
             return False
         try:
             deadline = self.clock() + self.join_timeout_s
+            chaos.maybe_raise("join_stall")  # fault seam (resilience/chaos.py)
             members = self._membership()
             candidate = HashRing([*members, name])
             for owner, owner_url in members.items():
@@ -618,6 +631,7 @@ class AutoscaleController:
         outcome = "ok"
         try:
             deadline = self.clock() + self.drain_timeout_s
+            chaos.maybe_raise("drain_timeout")  # fault seam (resilience/chaos.py)
             ring = HashRing(list(survivors))
             by_owner: dict[str, list[str]] = {}
             for k, _nbytes in self.pool.hot_keys(victim, self.prewarm_keys):

@@ -104,6 +104,7 @@ class DegradationController:
         self._level_since = float(clock())  # guarded-by: _lock
         self._breach_ticks = 0  # guarded-by: _lock
         self._calm_ticks = 0  # guarded-by: _lock
+        self._synthetic_ticks = 0  # guarded-by: _lock; inject()'s remaining breaches
         self._transitions: list[tuple[float, int]] = [(self._level_since, 0)]
         self._degraded_responses = 0  # guarded-by: _lock
 
@@ -113,7 +114,10 @@ class DegradationController:
         moved = False
         with self._lock:
             now = float(self._clock()) if now is None else float(now)
-            breach = (sample.breaker_open or sample.queue_frac >= self.queue_high
+            synthetic = self._synthetic_ticks > 0
+            if synthetic:
+                self._synthetic_ticks -= 1
+            breach = (synthetic or sample.breaker_open or sample.queue_frac >= self.queue_high
                       or sample.burn_rate >= self.burn_high)
             calm = (not breach and sample.queue_frac <= self.queue_low
                     and sample.burn_rate <= self.burn_low)
@@ -135,6 +139,17 @@ class DegradationController:
         if moved and self._on_level is not None:
             self._on_level(level)
         return level
+
+    def inject(self, ticks: int | None = None) -> None:
+        """Synthetic overload (the `overload_spike@request=N` chaos seam):
+        the next `ticks` observations classify as breach whatever the real
+        signals say. The default is exactly enough consecutive breaches to
+        walk the ladder to max_level, so a drill proves the full climb and
+        the one-step-at-a-time descent deterministically."""
+        if ticks is None:
+            ticks = self.engage_after * self.max_level + 1
+        with self._lock:
+            self._synthetic_ticks = max(self._synthetic_ticks, int(ticks))
 
     def _move_locked(self, level: int, now: float) -> bool:
         self._level = level

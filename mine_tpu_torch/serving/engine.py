@@ -40,14 +40,28 @@ reads `effective_tier` / `effective_prune_eps` once and passes both into
 `predict`, so a key and its entry never straddle a level flip. An entry
 fetched off a peer's wire (compress.py from_wire, CPU tensors) is checked
 against its bucket and placed on the engine's device by `_adopt_entry`, so
-its render dequantizes and composites there. The JAX engine's cost gauges
-wait for obs/cost.py.
+its render dequantizes and composites there.
+
+Cost (obs/cost.py): each bucket's first predict, its warm-up's as a rule,
+runs under the FLOP counter once; with metrics, every predict then sets
+`mine_serve_step_flops{kind="predict"}`, and the achieved TFLOP/s and
+`mine_serve_mfu` against the card's peak (or `--peak-flops`) from its time
+to completion. On the card that time is read off two timing events on the
+predict's stream, one before its dispatch and one after, and nothing waits
+for them: `publish_cost` sets the gauges of every predict whose end event
+has completed, at the next predict and on each /metrics scrape. On the
+CPU it is the predict's wall time.
+Renders count 0 FLOPs (their compositing is the hand-written kernel), so
+they set no cost gauge. Chaos seams (resilience/chaos.py): `predict_raise`
+at the top of `predict`, `engine_raise` at the top of `render`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
+import time
+from collections import deque
 from dataclasses import dataclass
 from typing import Any, Mapping
 
@@ -61,8 +75,10 @@ from mine_tpu_torch.inference.video import (
     prepare_image,
     render_many,
 )
+from mine_tpu_torch.obs.cost import StepCost, counted_cost, resolve_peak_flops
 from mine_tpu_torch.obs.trace import NULL_TRACER, Tracer
 from mine_tpu_torch.ops.mpi_render import compositor_from_config
+from mine_tpu_torch.resilience import chaos
 from mine_tpu_torch.serving.cache import MPIEntry
 from mine_tpu_torch.serving.compress import TIERS, CompressedMPI, compress_mpi, decompress
 from mine_tpu_torch.training.checkpoint import CheckpointTreeMismatch, validate_variables_tree
@@ -123,6 +139,8 @@ class _Bucket:
             {s} | {1 << p for p in range(1, s.bit_length()) if (1 << p) < s}
         ))
         self.predict_warm = False  # guarded-by: engine._warm_lock
+        # the predict's counted cost, set by its first predict
+        self.predict_cost: StepCost | None = None
         self.render_warm: set[tuple[int, int]] = set()  # (n_planes, n_poses)
 
     def plane_bucket(self, n_planes: int) -> int:
@@ -147,10 +165,13 @@ class RenderEngine:
         compositor: str = "streaming",
         device: torch.device | str | None = None,
         tracer: Tracer | None = None,
+        peak_flops_override: float = 0.0,
     ):
         if cfg.mpi.num_bins_fine > 0:
             raise NotImplementedError("coarse-to-fine predict is not ported yet")
         self.device = resolve_device(device)
+        # what mine_serve_mfu divides by: the override, else the card's row
+        self.peak_flops = resolve_peak_flops(self.device, peak_flops_override)
         self.base_cfg = cfg
         # the tier new predicts land at (a cache-key part) and the pruning
         # threshold; a bad value fails here, not inside the first predict
@@ -184,6 +205,10 @@ class RenderEngine:
         self._warm_lock = threading.Lock()
         self._buckets: dict[BucketSpec, _Bucket] = {}  # guarded-by: _buckets_lock
         self._buckets_lock = threading.Lock()
+        # (flops, start, end) of predicts on the card whose end event has
+        # not been read yet (publish_cost); guarded-by: _cost_lock
+        self._pending_costs: deque[tuple[float, Any, Any]] = deque(maxlen=64)
+        self._cost_lock = threading.Lock()
 
     # -- weight generations ----------------------------------------------------
 
@@ -327,6 +352,14 @@ class RenderEngine:
 
     # -- the two halves --------------------------------------------------------
 
+    def _predict_pass(self, bucket: _Bucket, image: np.ndarray, model: torch.nn.Module):
+        """_dispatch_predict, under the FLOP counter the first time per
+        bucket (obs/cost.py)."""
+        if bucket.predict_cost is not None:
+            return self._dispatch_predict(bucket, image, model)
+        out, bucket.predict_cost = counted_cost(self._dispatch_predict, bucket, image, model)
+        return out
+
     def _dispatch_predict(self, bucket: _Bucket, image: np.ndarray, model: torch.nn.Module):
         """One network pass + blending on an explicit module; (mpi_rgb,
         mpi_sigma, disparity). Shared by live predicts, warmup and the
@@ -352,11 +385,22 @@ class RenderEngine:
         (engine.weights()), so that the caller's cache key and this
         dispatch are one generation; tier/prune_eps likewise (default: the
         effective operating point at call time)."""
+        chaos.maybe_raise("predict_raise")  # fault seam (resilience/chaos.py)
         ws = weights if weights is not None else self._weights
         bucket = self.bucket(spec)
+        on_card = self.metrics is not None and self.device.type == "cuda"
         with self.tracer.span("engine_predict", cat="serve", bucket=str(bucket.spec),
                               request_id=request_id):
-            mpi_rgb, mpi_sigma, disparity = self._dispatch_predict(bucket, image, ws.model)
+            if on_card:
+                self.publish_cost()
+                stream = torch.cuda.current_stream(self.device)
+                start = stream.record_event(torch.cuda.Event(enable_timing=True))
+            counted = bucket.predict_cost is None  # slowed by the counter: not timed
+            t0 = time.perf_counter()
+            mpi_rgb, mpi_sigma, disparity = self._predict_pass(bucket, image, ws.model)
+            elapsed = time.perf_counter() - t0
+            if on_card:
+                end = stream.record_event(torch.cuda.Event(enable_timing=True))
             entry = compress_mpi(
                 mpi_rgb, mpi_sigma, disparity, bucket.k, bucket.spec,
                 tier=self.effective_tier() if tier is None else tier,
@@ -367,7 +411,34 @@ class RenderEngine:
             self.metrics.encoder_invocations.inc()
             if isinstance(entry, CompressedMPI) and entry.planes_kept < entry.num_planes_full:
                 self.metrics.pruned_planes.inc(entry.num_planes_full - entry.planes_kept)
+            flops = bucket.predict_cost.flops if bucket.predict_cost is not None else None
+            if flops:
+                self.metrics.step_flops.set(flops, kind="predict")
+            if flops and not counted:
+                if on_card:
+                    with self._cost_lock:
+                        self._pending_costs.append((flops, start, end))
+                else:
+                    self._set_rate(flops, elapsed)
         return entry
+
+    def publish_cost(self) -> None:
+        """Set the achieved TFLOP/s and MFU gauges from each predict on the
+        card whose end event has completed, oldest first: the counted FLOPs
+        over the time between its two events. Never waits on the card."""
+        done = []
+        with self._cost_lock:
+            while self._pending_costs and self._pending_costs[0][2].query():
+                done.append(self._pending_costs.popleft())
+        for flops, start, end in done:
+            self._set_rate(flops, start.elapsed_time(end) / 1e3)
+
+    def _set_rate(self, flops: float, seconds: float) -> None:
+        if self.metrics is None or seconds <= 0:
+            return
+        self.metrics.achieved_tflops.set(flops / seconds / 1e12)
+        if self.peak_flops:
+            self.metrics.mfu.set(flops / seconds / self.peak_flops)
 
     def _adopt_entry(self, entry: MPIEntry | CompressedMPI,
                      request_id: str | None = None) -> MPIEntry | CompressedMPI:
@@ -431,6 +502,7 @@ class RenderEngine:
                poses: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         """Render (N, 4, 4) G_tgt_src poses against a cached MPI. Returns
         host arrays (rgb (N, H, W, 3) in [0, 1], disparity (N, H, W, 1))."""
+        chaos.maybe_raise("engine_raise")  # fault seam (resilience/chaos.py)
         poses = np.asarray(poses, np.float32)
         if poses.ndim != 3 or poses.shape[1:] != (4, 4):
             raise ValueError(f"poses must be (N, 4, 4), got {poses.shape}")
@@ -473,7 +545,7 @@ class RenderEngine:
             bucket = self.bucket(spec)
             h, w, s = bucket.spec
             if not bucket.predict_warm:
-                self._dispatch_predict(bucket, np.zeros((h, w, 3), np.float32), self.model)
+                self._predict_pass(bucket, np.zeros((h, w, 3), np.float32), self.model)
             plane_counts = bucket.plane_buckets if self.prune_eps else (s,)
             for n_poses in sorted({self._pose_bucket(n) for n in (
                     pose_counts if pose_counts is not None else self.pose_buckets)}):

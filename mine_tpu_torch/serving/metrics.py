@@ -1,10 +1,7 @@
 """The serving metric set, on mine_tpu_torch.utils.metrics' registry (the
 port's own copy of mine_tpu/serving/metrics.py, with the same
-`mine_serve_*` family names).
-
-Left out with the part that feeds them, rather than exported as gauges that
-stay at 0: the cost families (`mine_serve_step_flops`, `mine_serve_mfu`,
-`mine_serve_achieved_tflops_per_sec`), which wait for obs/cost.py.
+`mine_serve_*` family names). The cost families are set by the engine's
+predicts (serving/engine.py, obs/cost.py).
 """
 
 from __future__ import annotations
@@ -172,6 +169,23 @@ class ServingMetrics:
             "mine_serve_renders_per_sec",
             "rendered frames per second over the trailing window",
         ))
+
+        # cost accounting (obs/cost.py): the predict's counted FLOPs over
+        # its measured time to completion
+        self.step_flops = r.gauge(
+            "mine_serve_step_flops",
+            "FLOPs of the most recent dispatch (FlopCounterMode count of its "
+            "bucket's first predict), by kind",
+        )
+        self.mfu = r.gauge(
+            "mine_serve_mfu",
+            "predict model FLOPs utilization over the device peak (absent "
+            "until a predict resolves and the peak is known)",
+        )
+        self.achieved_tflops = r.gauge(
+            "mine_serve_achieved_tflops_per_sec",
+            "achieved TFLOP/s of the last predict",
+        )
 
         # live device memory (obs/memlog.py; sampled per dispatch and per
         # /metrics scrape; absent on a CPU device)

@@ -64,13 +64,22 @@ included) and --peer-name, a local cache miss first asks the replicas ahead
 of this one in the digest's ring order for the MPI over GET /mpi/<key> and
 adopts it onto this engine's device instead of running the encoder.
 
-Not ported yet (ROADMAP queue 1 item 4): the flight recorder, the chaos
-fault seams and --peak-flops.
+Cost: every predict sets mine_serve_step_flops, mine_serve_mfu and
+mine_serve_achieved_tflops_per_sec (serving/engine.py, obs/cost.py);
+--peak-flops gives the peak MFU divides by where the card has no table row.
+
+Chaos seams (resilience/chaos.py, MINE_TPU_FAULTS): `corrupt_swap` and
+`corrupt_ckpt` in the swap worker's load, `overload_spike` (the ladder's
+inject) and `replica_kill` on a handled request, and the engine's
+`predict_raise` and `engine_raise`.
 
 CLI: python -m mine_tpu_torch.serving --workspace <train workspace> restores
 the model weights only (training/checkpoint.py load_for_serving), runs the
 default bucket's first dispatches, and serves until killed; on the CUDA
-device unless --device cpu is given.
+device unless --device cpu is given. Its flight recorder (obs/flight.py)
+dumps thread stacks, the last request spans and the card's memory
+statistics to <workspace>/flight on SIGUSR1 (and continues) and on SIGTERM
+(then terminates).
 """
 
 from __future__ import annotations
@@ -81,6 +90,7 @@ import hashlib
 import io
 import itertools
 import json
+import os
 import threading
 import time
 from concurrent.futures import Future
@@ -95,6 +105,7 @@ import torch
 from mine_tpu_torch.config import Config
 from mine_tpu_torch.inference.trajectory import poses_from_offsets
 from mine_tpu_torch.inference.video import normalize_disparity, to_uint8
+from mine_tpu_torch.obs.flight import FlightRecorder
 from mine_tpu_torch.obs.ledger import set_build_info
 from mine_tpu_torch.obs.memlog import MemLog
 from mine_tpu_torch.obs.slo import tracker_from_config
@@ -107,6 +118,7 @@ from mine_tpu_torch.obs.trace import (
     resolve_parent_span,
     resolve_request_id,
 )
+from mine_tpu_torch.resilience import chaos
 from mine_tpu_torch.resilience.breaker import BreakerOpen, CircuitBreaker
 from mine_tpu_torch.serving.batcher import (
     BatcherStopped,
@@ -194,6 +206,7 @@ class ServingApp:
         swap_source: str | SwapSource | None = None,
         device: torch.device | str | None = None,
         engine: RenderEngine | None = None,
+        peak_flops_override: float = 0.0,
     ):
         res = cfg.resilience
         self.metrics = ServingMetrics()
@@ -220,7 +233,8 @@ class ServingApp:
         else:
             self.engine = RenderEngine(cfg, state_dict, checkpoint_step=checkpoint_step,
                                        metrics=self.metrics, fov_deg=fov_deg,
-                                       tracer=self.tracer, device=device)
+                                       tracer=self.tracer, device=device,
+                                       peak_flops_override=peak_flops_override)
         # device-memory gauges, sampled after each dispatch and on scrape
         self.memlog = MemLog(tracer=self.tracer, live_gauge=self.metrics.hbm_live_bytes,
                              peak_gauge=self.metrics.hbm_peak_bytes, device=self.engine.device)
@@ -367,6 +381,14 @@ class ServingApp:
         return self.swap_status()
 
     def _load_swap_source(self, step: int | None = None) -> tuple[dict, int]:
+        """(state_dict, step) from the configured source; the corrupt
+        checkpoint chaos seams fire here."""
+        chaos.maybe_raise("corrupt_swap")  # fault seam (resilience/chaos.py)
+        if chaos.should("corrupt_ckpt"):
+            # a checkpoint whose bytes no longer match its integrity sidecar:
+            # the named rejection verify_checkpoint_integrity raises
+            raise ckpt.CheckpointCorrupt("chaos-injected corrupt checkpoint",
+                                         ["manifest sha256 mismatch (chaos seam)"])
         if callable(self.swap_source):
             return self.swap_source()
         _, state, step = ckpt.load_for_serving(
@@ -761,6 +783,22 @@ class ServingApp:
             "trace_spans_buffered": len(self.tracer),
         }
 
+    def flight_status(self) -> dict:
+        """A flight dump's view of the app. It takes none of the engine's
+        locks and touches no tensor (a dump from a server wedged on the card
+        must not wait on it); the breaker's, the ladder's and the memory
+        log's locks are held only for a few statements at a time."""
+        return {
+            "checkpoint_step": self.engine.checkpoint_step,
+            "weight_generation": self.engine.generation,
+            "compiles": self.engine.compiles,
+            "breaker": self.breaker.state,
+            "draining": self.draining,
+            "degradation_level": None if self.degrade is None else self.degrade.level,
+            "uptime_s": round(time.time() - self._started_at, 1),
+            "hbm": self.memlog.last(),
+        }
+
     def close(self) -> None:
         self._promote_stop.set()
         if self._promote_thread is not None:
@@ -870,6 +908,7 @@ class _Handler(BaseHTTPRequestHandler):
         if method == "GET" and path == "/metrics":
             self._endpoint = "metrics"
             app.memlog.sample()
+            app.engine.publish_cost()
             app.slo_scrape()
             self._send(200, app.metrics.render().encode(),
                        "text/plain; version=0.0.4; charset=utf-8")
@@ -941,6 +980,27 @@ class _Handler(BaseHTTPRequestHandler):
         self._p0 = time.perf_counter()
         self._observed = False
         self._endpoint = path.lstrip("/") or "unknown"
+        app = self.server.app
+        if chaos.should("overload_spike") and app.degrade is not None:
+            # synthetic pressure (resilience/chaos.py): the ladder's next
+            # observations classify as breach whatever the real signals say
+            app.degrade.inject()
+        if chaos.should("replica_kill"):
+            # replica death as a router sees it: the listener goes away and
+            # this connection drops with no response. shutdown() joins the
+            # serve_forever loop this handler runs under, so it runs
+            # off-thread.
+            def die(srv):
+                srv.shutdown()
+                srv.server_close()
+
+            threading.Thread(target=die, args=(self.server,), daemon=True).start()
+            self.close_connection = True
+            try:
+                self.connection.close()
+            except OSError:
+                pass
+            return
         try:
             code = self._route(method, path)
         except (BrokenPipeError, ConnectionResetError):
@@ -1183,6 +1243,9 @@ def main(argv: list[str] | None = None) -> None:
                         help="poll the workspace's last_good pointer every SECS seconds and "
                              "hot-swap to newer vetted checkpoints (0 disables)")
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
+    parser.add_argument("--peak-flops", type=float, default=0.0,
+                        help="peak FLOP/s the MFU gauge divides by when the card has no "
+                             "published table row (obs/cost.py), e.g. a CPU smoke")
     parser.add_argument("--verbose", action="store_true")
     args = parser.parse_args(argv)
     peers = {}
@@ -1207,8 +1270,12 @@ def main(argv: list[str] | None = None) -> None:
                      max_delay_ms=args.max_delay_ms, max_batch_poses=args.max_batch_poses,
                      fov_deg=args.fov, allowed_buckets=extra_buckets,
                      trace_enabled=not args.no_trace, swap_source=args.workspace,
-                     device=device)
+                     device=device, peak_flops_override=args.peak_flops)
     app.configure_peers(peers, args.peer_name)
+    # SIGUSR1/SIGTERM dump stacks, the last request spans and the card's
+    # memory statistics (no stall watchdog: an idle server is healthy)
+    flight = FlightRecorder(os.path.join(args.workspace, "flight"), tracer=app.tracer,
+                            get_status=app.flight_status).start()
     if args.watch_last_good > 0:
         app.start_promotion_watch(interval_s=args.watch_last_good)
     if not args.no_warmup:
@@ -1226,6 +1293,7 @@ def main(argv: list[str] | None = None) -> None:
     finally:
         server.server_close()
         app.close()
+        flight.stop()
 
 
 if __name__ == "__main__":

@@ -7,9 +7,14 @@ The run is on the CUDA device unless --device cpu is given. It trains on the
 train split and evaluates on the val split every training.eval_interval
 steps; the merged config lands in <workspace>/params.yaml, the loss dict of
 every logged step in <workspace>/train_log.jsonl, each eval in
-<workspace>/eval_log.jsonl and checkpoints under <workspace>/checkpoints/.
-Run it again on the same workspace and it resumes (training.resume_from:
-latest, or last_good for the sentinel-vetted step).
+<workspace>/eval_log.jsonl, the metric stream in <workspace>/metrics.jsonl,
+the log in <workspace>/train.log and checkpoints under
+<workspace>/checkpoints/. Run it again on the same workspace and it resumes
+(training.resume_from: latest, or last_good for the sentinel-vetted step).
+SIGTERM or SIGUSR2 saves the last completed step first
+(resilience.preempt_save); with obs.enabled the run also writes host spans,
+MFU and a flight recorder's dumps (<workspace>/flight); MINE_TPU_FAULTS
+injects the chaos seams' faults (resilience/chaos.py).
 """
 
 from __future__ import annotations

@@ -6,12 +6,28 @@ once the sentinel has vetted it), eval over the val set every
 `training.eval_interval` steps and at the reference's first eval step 2000,
 auto-resume from the workspace (`training.resume_from`: latest | last_good),
 a warm start from a converted .npz, the sentinel's rollback loop, and an
-emergency checkpoint when a run dies (never masking the error), and a
-torch.profiler trace of the first `profile_steps` steps. Batches come through
-`staged_batches`: built `data.num_workers` ahead on a host thread, in
-page-locked memory, with `data.loader_retries` retries. The rest of
-observability, the flight recorder, the preemption guard and the multi-host
-layers are not ported (ROADMAP queue 1).
+emergency checkpoint when a run dies (never masking the error). Batches come
+through `staged_batches`: built `data.num_workers` ahead on a host thread, in
+page-locked memory, with `data.loader_retries` retries.
+
+Observability (cfg.obs.*, mine_tpu_torch/obs/): when enabled, every step is
+broken into host spans (data/step/sync/log/ckpt) on a bounded ring, exported
+as Chrome-trace JSON to `<workspace>/profile/host_spans.trace.json` with the
+device-memory samples; a flight recorder dumps thread stacks and the last-K
+spans on SIGTERM/SIGUSR1 or a stall; and one step runs under a FLOP counter
+(obs/cost.py) so that a live MFU gauge is published over each log interval
+(`TrainObsMetrics`, the JAX package's names, and `<workspace>/metrics.jsonl`).
+Disabled (the default), the spans are a shared no-op context manager. A
+torch.profiler window (`obs.profile_start_offset`, `obs.profile_steps`, or
+the first `profile_steps` steps when the Trainer is asked for them) is
+attributed per component (obs/attrib.py) when it closes.
+
+Resilience: the preemption guard (resilience/preempt.py) saves the last
+completed step on SIGTERM/SIGUSR2 (`resilience.preempt_save`), deferring a
+signal that lands inside a step or a checkpoint write to its end; the chaos
+seams `nan_loss`, `sigterm`, `sigusr2`, `preempt_exit` and (through the
+pipeline) `loader_raise` fire here (resilience/chaos.py). The multi-host
+layers wait for ROADMAP queue 1 item 6.
 """
 
 from __future__ import annotations
@@ -19,7 +35,9 @@ from __future__ import annotations
 import json
 import logging
 import os
+import signal
 import time
+from contextlib import nullcontext
 from itertools import islice
 from typing import Any, Callable, Iterable, Iterator, Mapping
 
@@ -30,6 +48,15 @@ from mine_tpu_torch.data.pipeline import prefetch
 from mine_tpu_torch.losses.lpips import load_lpips_params
 from mine_tpu_torch.models.convert import load_npz_subtrees
 from mine_tpu_torch.models.mpi import init_weights
+from mine_tpu_torch.obs.attrib import attach_cost_estimates, attribute_events, load_trace_events
+from mine_tpu_torch.obs.cost import compute_mfu, counted_cost, resolve_peak_flops
+from mine_tpu_torch.obs.flight import FlightRecorder
+from mine_tpu_torch.obs.ledger import set_build_info
+from mine_tpu_torch.obs.memlog import MemLog
+from mine_tpu_torch.obs.trace import Tracer
+from mine_tpu_torch.resilience import chaos
+from mine_tpu_torch.resilience.chaos import PreemptedError
+from mine_tpu_torch.resilience.preempt import PreemptionGuard
 from mine_tpu_torch.resilience.sentinel import SentinelAbort, SentinelRollback, TrainingSentinel
 from mine_tpu_torch.training import checkpoint as ckpt
 from mine_tpu_torch.training.optimizer import make_optimizer
@@ -41,8 +68,10 @@ from mine_tpu_torch.training.step import (
     train_step,
 )
 from mine_tpu_torch.utils.device import resolve_device
+from mine_tpu_torch.utils.logging import LOGGER_NAME, MetricWriter, make_logger
+from mine_tpu_torch.utils.metrics import MetricsRegistry
 
-logger = logging.getLogger("mine_tpu_torch")
+logger = logging.getLogger(LOGGER_NAME)
 
 LOSS_KEYS = (
     "loss", "loss_rgb_src", "loss_ssim_src", "loss_disp_pt3dsrc",
@@ -88,10 +117,12 @@ def staged_batches(epoch_iter: Iterable[dict], device: torch.device, num_workers
     no batch reaches the card before its step. `retries`
     (data.loader_retries) bounds transient-error retries (data/pipeline.py).
     num_workers 0 is fully synchronous and copies from pageable memory, as
-    does a CPU device (nothing to pin). Close the returned generator when
-    abandoning it early: its producer thread then stops."""
+    does a CPU device (nothing to pin). Each produced batch consults the
+    `loader_raise` chaos seam, inside the retries. Close the returned
+    generator when abandoning it early: its producer thread then stops."""
     pin = pin_batch if num_workers > 0 and device.type == "cuda" else None
-    return prefetch(epoch_iter, num_workers, transfer=pin, retries=retries, on_retry=on_retry)
+    return prefetch(epoch_iter, num_workers, transfer=pin, retries=retries, on_retry=on_retry,
+                    fault_seam="loader_raise")
 
 
 def _to_host(values: Mapping[str, torch.Tensor]) -> dict[str, float]:
@@ -138,6 +169,61 @@ def run_evaluation(cfg: Config, model: torch.nn.Module, val_ds: Any,
     return result
 
 
+
+
+class TrainObsMetrics:
+    """Training's live gauge set on a utils/metrics.py registry (the JAX
+    package's `mine_train_*` names), the queryable twin of the
+    MetricWriter scalars. The JAX set's per-host data-bytes counter waits
+    for multi-host training (ROADMAP queue 1 item 6)."""
+
+    def __init__(self):
+        self.registry = MetricsRegistry()
+        r = self.registry
+        self.mfu = r.gauge(
+            "mine_train_mfu",
+            "model FLOPs utilization: counted FLOPs per step (obs/cost.py) over "
+            "measured step time, divided by the card's published peak")
+        self.tflops_per_sec = r.gauge(
+            "mine_train_tflops_per_sec", "achieved model TFLOP/s of the train step")
+        self.step_flops = r.gauge(
+            "mine_train_step_flops", "FLOPs of one train step (FlopCounterMode count)")
+        self.hbm_fraction = r.gauge(
+            "mine_train_achieved_hbm_fraction",
+            "bytes accessed per step over step time, divided by peak HBM bandwidth "
+            "(absent: the port counts no bytes, obs/cost.py)")
+        self.imgs_per_sec = r.gauge("mine_train_imgs_per_sec", "training throughput")
+        self.sync_wait_ms = r.gauge(
+            "mine_train_sync_wait_ms",
+            "wall time of the log-interval device-to-host sync (labeled by process_index)")
+        self.grad_norm = r.gauge(
+            "mine_train_grad_norm", "global gradient norm at the latest logged step")
+        self.data_retries = r.counter(
+            "mine_train_data_retries_total",
+            "host batches retried after transient loader/staging errors "
+            "(data.loader_retries; labeled by process_index)")
+        self.accum_steps = r.gauge(
+            "mine_train_accum_steps", "micro-batches accumulated per optimizer update")
+        self.effective_batch = r.gauge(
+            "mine_train_effective_batch", "examples per optimizer update")
+        self.micro_step_flops = r.gauge(
+            "mine_train_flops_per_micro_step",
+            "step_flops / accum_steps: FLOPs of one micro-batch forward+backward")
+        self.component_time_ms = r.gauge(
+            "mine_train_component_time_ms",
+            "device time per named component over the last profile window "
+            "(obs/attrib.py; labels: component, plus the unattributed remainder)")
+        self.attrib_coverage = r.gauge(
+            "mine_train_attrib_coverage",
+            "fraction of profiled device time attributed to a named component "
+            "(the table is only trustworthy >= 0.9)")
+        self.hbm_live_bytes = r.gauge(
+            "mine_train_hbm_live_bytes",
+            "torch.cuda.memory_allocated, sampled each log interval (obs/memlog.py)")
+        self.hbm_peak_bytes = r.gauge(
+            "mine_train_hbm_peak_bytes", "torch.cuda.max_memory_allocated (obs/memlog.py)")
+
+
 class Trainer:
     """One model, its optimizer, schedule and generators on one device.
 
@@ -146,7 +232,10 @@ class Trainer:
     them in fit(). The stratified disparities and the sigma dropout masks
     come from two CPU generators seeded from training.seed. Runs on CUDA
     unless `device="cpu"` is asked for. Options the port does not honour
-    yet raise here.
+    yet raise here. `profile_steps` > 0 traces the first that many steps of
+    fit() (the CLI's --profile-steps); otherwise obs.profile_steps traces a
+    window starting obs.profile_start_offset steps in. Either needs a
+    workspace, as do the flight recorder and the metric stream.
     """
 
     def __init__(self, cfg: Config, workspace: str | None = None,
@@ -165,7 +254,36 @@ class Trainer:
         self.cfg = cfg
         self.workspace = workspace
         self.device = resolve_device(device)
-        self.sentinel = TrainingSentinel(cfg.resilience, logger)
+        obs = cfg.obs
+        self.tracer = Tracer(enabled=obs.enabled, max_spans=obs.trace_buffer_spans)
+        self.obs_metrics = TrainObsMetrics()
+        set_build_info(self.obs_metrics.registry, backend=self.device.type)
+        self.obs_metrics.accum_steps.set(accum)
+        self.obs_metrics.effective_batch.set(cfg.data.per_gpu_batch_size)
+        # device-memory telemetry rides the obs switch, like the tracer
+        self.memlog = MemLog(tracer=self.tracer, live_gauge=self.obs_metrics.hbm_live_bytes,
+                             peak_gauge=self.obs_metrics.hbm_peak_bytes, device=self.device)
+        self._progress: dict[str, Any] = {}
+        self.flight: FlightRecorder | None = None
+        if obs.enabled and workspace:
+            self.flight = FlightRecorder(
+                os.path.join(workspace, "flight"), tracer=self.tracer,
+                watchdog_timeout_s=obs.flight_watchdog_s, last_k_spans=obs.flight_last_k_spans,
+                get_status=self._flight_status,
+            )
+        self.sentinel = TrainingSentinel(cfg.resilience, logger, flight=self.flight)
+        # (steps after the start, steps): the torch.profiler window
+        if not workspace:
+            self.profile_window = (0, 0)
+        elif profile_steps:
+            self.profile_window = (0, profile_steps)
+        else:
+            self.profile_window = (obs.profile_start_offset, obs.profile_steps)
+        self.train_cost = None  # obs/cost.py StepCost of the counted step
+        self.attribution: dict | None = None  # the last profile window's table
+        self.peak_flops = resolve_peak_flops(self.device, obs.peak_flops_override)
+        self.writer: MetricWriter | None = None
+        self._guard: PreemptionGuard | None = None
         model = build_model(cfg)
         if state_dict is None:
             init_weights(model, torch.Generator().manual_seed(cfg.training.seed))
@@ -180,8 +298,6 @@ class Trainer:
         self.lpips_params = load_lpips_params(cfg.training.lpips_weights_path, self.device)
         # (global_step, result) of every eval this trainer ran
         self.evals: list[tuple[int, dict[str, float]]] = []
-        # trace the first `profile_steps` steps of fit() (needs a workspace)
-        self.profile_steps = profile_steps if workspace else 0
         if workspace:
             ckpt.save_paired_config(cfg, workspace)
 
@@ -283,7 +399,146 @@ class Trainer:
         if self.workspace:
             with open(os.path.join(self.workspace, "eval_log.jsonl"), "a") as fh:
                 fh.write(json.dumps({"global_step": self.global_step, **result}) + "\n")
+        if self.writer is not None:
+            self.writer.scalars(result, self.global_step, prefix="val/")
         return result
+
+    # -- preemption and evidence ----------------------------------------------
+
+    def _deferring(self):
+        """A step or checkpoint write: a preemption signal inside it saves at
+        its end (resilience/preempt.py)."""
+        return self._guard.deferring() if self._guard is not None else nullcontext()
+
+    def _preempt_save(self, reason: str) -> None:
+        """The preemption guard's save (resilience/preempt.py), on the main
+        thread outside any step: the last completed step, unless it is on
+        disk already; the last-good pointer moves only when the sentinel
+        vets the step (vet() never raises: a bad verdict waits for the next
+        check())."""
+        if not self.workspace or self.optimizer is None:
+            return
+        step = self.global_step
+        logger.warning("preemption save (%s): persisting step %d", reason, step)
+        if step not in ckpt.all_steps(self.workspace):
+            self.save_checkpoint()
+        if self.sentinel.vet(step):
+            ckpt.mark_last_good(self.workspace, step)
+        else:
+            logger.warning("preemption save: step %d saved but NOT marked last-good "
+                           "(unvetted non-finite flags)", step)
+
+    def _flight_status(self) -> dict:
+        """What a flight dump's meta.json records about this trainer: the
+        progress counters, the last logged gauges and memory sample. A copy
+        of one dict the loop keeps: a dump runs in a signal handler on the
+        loop's own thread, which may be holding the registry's or the memory
+        log's lock at that moment."""
+        return dict(self._progress)
+
+    def _export_host_trace(self) -> None:
+        """The host spans (and the memory samples as counter events) next
+        to the torch.profiler traces."""
+        if not self.workspace or not self.tracer.enabled or not len(self.tracer):
+            return
+        try:
+            self.tracer.export(os.path.join(self.workspace, "profile", "host_spans.trace.json"),
+                               extra_events=self.memlog.counter_events())
+        except OSError:
+            logger.exception("host trace export failed")
+
+    # -- cost and attribution ---------------------------------------------------
+
+    def _counted_step(self, batch: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+        """One step under the FLOP counter (obs/cost.py); it is left out of
+        every timing window."""
+        loss_dict, cost = counted_cost(self.step, batch)
+        self.train_cost = cost
+        self._progress["step_flops"] = cost.flops
+        m = self.obs_metrics
+        if cost.flops:
+            m.step_flops.set(cost.flops)
+            m.micro_step_flops.set(cost.flops / max(int(self.cfg.training.accum_steps), 1))
+            if self.writer is not None:
+                self.writer.scalar("obs/step_flops", cost.flops, self.global_step)
+        logger.info("obs cost accounting: step flops=%s peak memory=%s peak_flops=%s",
+                    cost.flops, cost.peak_memory_bytes, self.peak_flops)
+        return loss_dict
+
+    def _publish_mfu(self, step_seconds: float) -> None:
+        cost = self.train_cost
+        if cost is None or not cost.flops or step_seconds <= 0:
+            return
+        achieved = cost.flops / step_seconds
+        self.obs_metrics.tflops_per_sec.set(achieved / 1e12)
+        mfu = compute_mfu(cost.flops, step_seconds, self.peak_flops)
+        if self.writer is not None:
+            self.writer.scalar("obs/tflops_per_sec", achieved / 1e12, self.global_step)
+            self.writer.scalar("obs/step_flops", cost.flops, self.global_step)
+            if mfu is not None:
+                self.writer.scalar("obs/mfu", mfu, self.global_step)
+        if mfu is not None:
+            self.obs_metrics.mfu.set(mfu)
+        self._progress.update(mfu=mfu, tflops_per_sec=achieved / 1e12)
+
+    def _publish_phases(self) -> None:
+        if self.writer is None:
+            return
+        for phase, stats in self.tracer.phase_summary(reset=True).items():
+            if phase.startswith("train."):
+                self.writer.scalar(f"obs/phase_{phase[len('train.'):]}_ms", stats["mean_ms"],
+                                   self.global_step)
+
+    def _start_profile(self) -> torch.profiler.profile:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _finish_profile(self, profiler: torch.profiler.profile) -> None:
+        """Close the window: the trace to <workspace>/profile, the host spans
+        beside it, then the component table into the gauges (the heartbeat
+        beats around the export and the parse, which take seconds)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        path = os.path.join(self.workspace, "profile", "train_steps.trace.json")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        profiler.export_chrome_trace(path)
+        self._export_host_trace()
+        logger.info("profile trace of %d steps written to %s", self.profile_window[1], path)
+        if self.flight is not None:
+            self.flight.heartbeat(step=self.global_step)
+        try:
+            table = attribute_events(load_trace_events(path))
+        except Exception:  # noqa: BLE001 - an instrument, never a crash
+            logger.exception("profile attribution failed")
+            return
+        finally:
+            if self.flight is not None:
+                self.flight.heartbeat(step=self.global_step)
+        if not table["rows"]:
+            logger.info("profile attribution: no op events in the captured trace")
+            return
+        table["trace"] = path
+        if self.train_cost is not None:
+            attach_cost_estimates(table, self.train_cost.flops, None)
+        self.attribution = table
+        m = self.obs_metrics
+        for row in table["rows"]:
+            m.component_time_ms.set(row["time_ms"], component=row["component"])
+            if self.writer is not None:
+                self.writer.scalar(f"obs/component_{row['component']}_ms", row["time_ms"],
+                                   self.global_step)
+        m.attrib_coverage.set(table["coverage"])
+        if self.writer is not None:
+            self.writer.scalar("obs/attrib_coverage", table["coverage"], self.global_step)
+        logger.info("profile attribution (coverage %.1f%%%s): %s", 100.0 * table["coverage"],
+                    "" if table["covered"] else ", BELOW the 90% accounting bar",
+                    " ".join(f"{r['component']}={r['time_ms']:.1f}ms({r['pct']}%)"
+                             for r in table["rows"]))
 
     # -- the loop -------------------------------------------------------------
 
@@ -295,9 +550,20 @@ class Trainer:
         dict as floats; eval results are in `self.evals`."""
         steps_per_epoch = len(train_ds)
         start = self._start(steps_per_epoch)
+        if self.workspace:
+            make_logger(self.workspace)
+            self.writer = MetricWriter(self.workspace)
+        if self.flight is not None:
+            self.flight.start()
+        # after the flight recorder, so that its SIGTERM handler chains:
+        # save -> flight dump -> re-delivered termination
+        if self.cfg.resilience.preempt_save:
+            self._guard = PreemptionGuard(self._preempt_save, logger=logger).install()
         try:
             return self._fit_epochs(train_ds, val_ds, start, max_steps)
         except (KeyboardInterrupt, Exception):
+            if self.flight is not None:
+                self.flight.dump("train_exception")
             # persist the last completed step so that the next run resumes;
             # a failing save must not mask the original error
             try:
@@ -308,6 +574,18 @@ class Trainer:
             except BaseException:  # noqa: BLE001 - incl. a second interrupt
                 logger.exception("emergency checkpoint failed")
             raise
+        finally:
+            if self._guard is not None:
+                self._guard.uninstall()
+                self._guard = None
+            if self.flight is not None:
+                self.flight.stop()
+            self._export_host_trace()
+            if self.writer is not None:
+                self.writer.close()
+                self.writer = None
+            if self.workspace:
+                make_logger(None)  # closes train.log
 
     def _fit_epochs(self, train_ds, val_ds, start: int, max_steps: int | None) -> dict:
         """The rollback loop: a SentinelRollback restores the last-good
@@ -338,18 +616,27 @@ class Trainer:
     def _run_epochs(self, train_ds, val_ds, start: int, max_steps: int | None) -> dict:
         cfg = self.cfg
         tcfg = cfg.training
+        tracer = self.tracer
+        chaos_sched = chaos.active()
         steps_per_epoch = len(train_ds)
         start_epoch = start // steps_per_epoch + 1
         skip = start % steps_per_epoch
         meters = {k: AverageMeter(k) for k in LOSS_KEYS}
         logged: dict[str, float] = {}
-        t_log, since_log = time.perf_counter(), 0
+        cost_pending = cfg.obs.enabled and cfg.obs.cost_enabled and self.train_cost is None
+        profile_at = start + self.profile_window[0]
+        profiler = None
+        # since_log weighs the meters; the timing (imgs/s, MFU) counts only
+        # the steps of its window, which leaves out the counted step and a
+        # profile window
+        t_log, since_log, timed = time.perf_counter(), 0, 0
         done = max_steps is not None and self.global_step >= max_steps
         for epoch in range(start_epoch, tcfg.epochs + 1):
             if done:
                 break
             for m in meters.values():
                 m.reset()
+            self._progress.update(epoch=epoch, global_step=self.global_step)
             epoch_iter, step_in_epoch = train_ds.epoch(epoch), 0
             if epoch == start_epoch and skip:
                 # loaders are deterministic in (epoch, step): a mid-epoch
@@ -359,39 +646,86 @@ class Trainer:
             batches = staged_batches(epoch_iter, self.device, cfg.data.num_workers,
                                      cfg.data.loader_retries, self._on_loader_retry)
             try:
-                for batch in batches:
+                while True:
+                    with tracer.span("data", cat="train"):
+                        batch = next(batches, None)
+                    if batch is None:
+                        break
                     step_in_epoch += 1
-                    if self.global_step == start and self.profile_steps:
-                        activities = [torch.profiler.ProfilerActivity.CPU]
-                        if self.device.type == "cuda":
-                            activities.append(torch.profiler.ProfilerActivity.CUDA)
-                        profiler = torch.profiler.profile(activities=activities)
-                        profiler.start()
-                    loss_dict = self.step(batch)
-                    if self.global_step == start + self.profile_steps and self.profile_steps:
-                        profiler.stop()
-                        path = os.path.join(self.workspace, "profile", "train_steps.trace.json")
-                        os.makedirs(os.path.dirname(path), exist_ok=True)
-                        profiler.export_chrome_trace(path)
-                        logger.info("profile trace of %d steps written to %s",
-                                    self.profile_steps, path)
-                    self.sentinel.observe(self.global_step, loss_dict["update_skipped"])
+                    if self.profile_window[1] and self.global_step == profile_at:
+                        profiler = self._start_profile()
+                    if chaos_sched is not None and chaos_sched.should(
+                            "nan_loss", at=self.global_step + 1):
+                        # poison through the real graph: NaN pixels make the
+                        # loss and gradients non-finite as a corrupt shard would
+                        logger.warning("chaos: poisoning step %d's batch with NaNs",
+                                       self.global_step + 1)
+                        batch = dict(batch)
+                        batch["src_img"] = batch["src_img"] * float("nan")
+                    counted = cost_pending
+                    with tracer.span("step", cat="train", step=self.global_step + 1), \
+                            self._deferring():
+                        if counted:
+                            cost_pending = False
+                            loss_dict = self._counted_step(batch)
+                        else:
+                            loss_dict = self.step(batch)
+                        # inside the region: a save deferred to its end vets
+                        # this step's flag too
+                        self.sentinel.observe(self.global_step, loss_dict["update_skipped"])
+                    self._progress["global_step"] = self.global_step
+                    if self.flight is not None:
+                        self.flight.heartbeat(step=self.global_step)
+                    if chaos_sched is not None:
+                        if chaos_sched.should("preempt_exit", at=self.global_step):
+                            raise PreemptedError(
+                                f"chaos preempt_exit after step {self.global_step}")
+                        if chaos_sched.should("sigusr2", at=self.global_step):
+                            os.kill(os.getpid(), signal.SIGUSR2)
+                        if chaos_sched.should("sigterm", at=self.global_step):
+                            os.kill(os.getpid(), signal.SIGTERM)
                     since_log += 1
+                    if counted:
+                        t_log, timed = time.perf_counter(), 0
+                    else:
+                        timed += 1
+                    if profiler is not None and \
+                            self.global_step == profile_at + self.profile_window[1]:
+                        profiler, window = None, profiler
+                        self._finish_profile(window)
+                        t_log, timed = time.perf_counter(), 0
                     done = max_steps is not None and self.global_step >= max_steps
                     if step_in_epoch % tcfg.log_interval == 0 or done:
-                        logged = _to_host(loss_dict)
-                        for k in LOSS_KEYS:
-                            meters[k].update(logged[k], since_log)
-                        rate = since_log * self.batch_size / (time.perf_counter() - t_log)
-                        self._log(epoch, step_in_epoch, steps_per_epoch, logged, rate)
-                        t_log, since_log = time.perf_counter(), 0
+                        t_sync = time.perf_counter()
+                        with tracer.span("sync", cat="train", step=self.global_step):
+                            logged = _to_host(loss_dict)
+                        self.obs_metrics.sync_wait_ms.set(
+                            (time.perf_counter() - t_sync) * 1e3, process_index="0")
+                        with tracer.span("log", cat="train", step=self.global_step):
+                            for k in LOSS_KEYS:
+                                meters[k].update(logged[k], since_log)
+                            interval = time.perf_counter() - t_log
+                            rate = timed * self.batch_size / interval if timed else None
+                            self._log(epoch, step_in_epoch, steps_per_epoch, logged, rate)
+                            if timed:
+                                self._publish_mfu(interval / timed)
+                            if cfg.obs.enabled:
+                                self.memlog.sample(step=self.global_step)
+                                self._progress["hbm"] = self.memlog.last()
+                        t_log, since_log, timed = time.perf_counter(), 0, 0
+                        if tracer.enabled:
+                            # after the log span closes, so that this
+                            # interval's own sync/log phases are in it
+                            self._publish_phases()
                         self.sentinel.check(logged["loss"], self.global_step)
                     if self.workspace and self.global_step % tcfg.checkpoint_interval == 0:
                         # resolve the pending flags first: a trip rolls back or
                         # aborts instead of blessing a suspect step
                         self.sentinel.flush(self.global_step)
-                        self.save_checkpoint()
-                        ckpt.mark_last_good(self.workspace, self.global_step)
+                        with tracer.span("ckpt", cat="train", step=self.global_step), \
+                                self._deferring():
+                            self.save_checkpoint()
+                            ckpt.mark_last_good(self.workspace, self.global_step)
                         logger.info("checkpoint saved @ step %d", self.global_step)
                     if val_ds is not None and (self.global_step == FIRST_EVAL_STEP
                                                or self.global_step % tcfg.eval_interval == 0):
@@ -401,30 +735,55 @@ class Trainer:
             finally:
                 # a rollback or an error abandons the epoch: stop its threads
                 batches.close()
+                if profiler is not None:  # the window outlived the run
+                    profiler.stop()
+                    profiler = None
             if any(m.count for m in meters.values()):
+                epoch_avg = {k: m.avg for k, m in meters.items()}
                 logger.info("epoch [%03d] avg: loss=%.4f rgb_tgt=%.4f ssim_tgt=%.4f psnr=%.2f",
-                            epoch, meters["loss"].avg, meters["loss_rgb_tgt"].avg,
-                            meters["loss_ssim_tgt"].avg, meters["psnr_tgt"].avg)
+                            epoch, epoch_avg["loss"], epoch_avg["loss_rgb_tgt"],
+                            epoch_avg["loss_ssim_tgt"], epoch_avg["psnr_tgt"])
+                if self.writer is not None:
+                    self.writer.scalars(epoch_avg, self.global_step, prefix="train_epoch/")
         self.sentinel.flush(self.global_step)
         if self.workspace:
             # a resumed run, or one that stopped on a checkpoint step, may
             # hold this step already
-            if self.global_step not in ckpt.all_steps(self.workspace):
-                self.save_checkpoint()
-            ckpt.mark_last_good(self.workspace, self.global_step)
+            with tracer.span("ckpt", cat="train", step=self.global_step), self._deferring():
+                if self.global_step not in ckpt.all_steps(self.workspace):
+                    self.save_checkpoint()
+                ckpt.mark_last_good(self.workspace, self.global_step)
+        if self.writer is not None:
+            self.writer.flush()
         return logged
 
     def _on_loader_retry(self, attempt: int, exc: BaseException) -> None:
+        self.obs_metrics.data_retries.inc(process_index="0")
         logger.warning("loader retry %d after %s: %s", attempt, type(exc).__name__, exc)
 
     def _log(self, epoch: int, step_in_epoch: int, steps_per_epoch: int,
-             losses: dict[str, float], imgs_per_sec: float) -> None:
+             losses: dict[str, float], imgs_per_sec: float | None) -> None:
+        """One log interval: the log line, train_log.jsonl, the metric
+        stream's train/ scalars and the gauges. imgs_per_sec is None when
+        no timed step fell in the interval."""
         lrs = {g["name"]: g["lr"] for g in self.optimizer.param_groups}
         logger.info(
-            "epoch [%03d] step [%d/%d] global_step=%d loss=%.4f grad_norm=%.4f "
-            "%.2f imgs/s", epoch, step_in_epoch, steps_per_epoch, self.global_step,
-            losses["loss"], losses["grad_norm"], imgs_per_sec,
+            "epoch [%03d] step [%d/%d] global_step=%d loss=%.4f grad_norm=%.4f %s imgs/s",
+            epoch, step_in_epoch, steps_per_epoch, self.global_step, losses["loss"],
+            losses["grad_norm"], "n/a" if imgs_per_sec is None else f"{imgs_per_sec:.2f}",
         )
+        m = self.obs_metrics
+        m.grad_norm.set(losses["grad_norm"])
+        if imgs_per_sec is not None:
+            m.imgs_per_sec.set(imgs_per_sec)
+            self._progress["imgs_per_sec"] = imgs_per_sec
+        if self.writer is not None:
+            step = self.global_step
+            self.writer.scalars({k: losses[k] for k in LOSS_KEYS}, step, prefix="train/")
+            if imgs_per_sec is not None:
+                self.writer.scalar("train/imgs_per_sec", imgs_per_sec, step)
+            self.writer.scalar("train/backbone_lr", lrs["backbone"], step)
+            self.writer.scalar("train/grad_norm", losses["grad_norm"], step)
         if self.workspace:
             os.makedirs(self.workspace, exist_ok=True)
             with open(os.path.join(self.workspace, "train_log.jsonl"), "a") as fh:

@@ -22,6 +22,7 @@ from mine_tpu_torch.losses.metrics import compute_scale_factor, log_disparity_lo
 from mine_tpu_torch.losses.smoothness import edge_aware_loss, edge_aware_loss_v2
 from mine_tpu_torch.losses.ssim import ssim
 from mine_tpu_torch.models.mpi import MPINetwork
+from mine_tpu_torch.obs.attrib import scope
 from mine_tpu_torch.ops.geometry import inverse_3x3, scale_intrinsics
 from mine_tpu_torch.ops.mpi_render import compositor_from_config
 from mine_tpu_torch.ops.sampling import (
@@ -293,10 +294,13 @@ def loss_fcn(cfg: Config, model: MPINetwork, batch: dict[str, torch.Tensor],
     scale_factor = None
     loss_dicts, vizs = [], []
     for scale in scales:
-        ld, viz, scale_factor = loss_fcn_per_scale(
-            cfg, scale, batch, mpis[scale], disparity, scale_factor,
-            is_val=is_val, lpips_params=lpips_params, per_example=per_example,
-        )
+        # component scope (obs/attrib.py): everything per scale outside the
+        # render's own warp and composite scopes
+        with scope("losses"):
+            ld, viz, scale_factor = loss_fcn_per_scale(
+                cfg, scale, batch, mpis[scale], disparity, scale_factor,
+                is_val=is_val, lpips_params=lpips_params, per_example=per_example,
+            )
         loss_dicts.append(ld)
         vizs.append(viz)
     loss_dict = dict(loss_dicts[0])
@@ -397,8 +401,9 @@ def train_step(cfg: Config, model: MPINetwork, optimizer: torch.optim.Optimizer,
     if skipped:
         snapshot.restore()
         return out
-    optimizer.step()
-    scheduler.step()
+    with scope("optimizer"):
+        optimizer.step()
+        scheduler.step()
     return out
 
 

@@ -16,7 +16,10 @@ against the JAX package's:
 
 import io
 import json
+import os
+import signal
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -262,11 +265,15 @@ def test_join_prewarms_and_drain_hands_off_without_a_5xx():
 
 
 def test_subprocess_pool_runs_the_ports_serving_cli(tmp_path):
+    """The pool's replicas behind a router join and drain under traffic;
+    the pool's `env` reaches every replica (a corrupt_ckpt fault refuses a
+    swap as corrupt), and `pid` signals one (SIGUSR1: a flight dump)."""
     cfg = Config().replace(**{"data.img_h": 128, "data.img_w": 128, "model.num_layers": 18,
                               "model.dtype": "float32", "mpi.num_bins_coarse": 2})
     save_paired_config(cfg, str(tmp_path))
     pool = tauto.SubprocessPool(str(tmp_path), server_args=[
-        "--device", "cpu", "--allow-random-init", "--no-warmup"])
+        "--device", "cpu", "--allow-random-init", "--no-warmup"],
+        env=dict(os.environ, MINE_TPU_FAULTS="corrupt_ckpt@swap=1"))
     ef = _Elastic(pool, 1, min_replicas=1, max_replicas=2, prewarm_keys=16)
     try:
         first = pool.names()[0]
@@ -286,5 +293,15 @@ def test_subprocess_pool_runs_the_ports_serving_cli(tmp_path):
         assert ef.controller.scale_to(1) == 1
         assert pool.names() == [first]
         assert all(ef.render(i, k) == [200] for i, k in keys.items())
+        code, body = _http(pool.urls()[first], "/admin/swap", data=b'{"wait": true}',
+                           headers={"Content-Type": "application/json"})
+        assert code == 422 and json.loads(body)["reason"] == "corrupt"
+        os.kill(pool.pid(first), signal.SIGUSR1)
+        dumps = os.path.join(str(tmp_path), "flight", f"pid{pool.pid(first)}")
+        deadline = time.monotonic() + 30
+        while not (os.path.isdir(dumps) and os.listdir(dumps)):
+            assert time.monotonic() < deadline, "no flight dump after SIGUSR1"
+            time.sleep(0.05)
+        assert os.listdir(dumps)[0].endswith("signal_sigusr1")
     finally:
         ef.close()

@@ -206,20 +206,41 @@ def test_infer_cli_writes_videos(weights, tmp_path):
     f[:-5] for f in os.listdir(CONFIGS_DIR) if f.endswith(".yaml")))
 def test_config_files_load_as_in_jax(name):
     """The shipped YAMLs, read as data files, give the port every key and
-    value the JAX loader gives in the groups the port copies whole (data, lr,
-    model, mpi, loss, training, mesh, serving), the training sentinel's and
-    the serving stack's resilience keys, and the server's span ring size."""
+    value the JAX loader gives in every group but `parallel`: data, lr,
+    model, mpi, loss, training, mesh, serving, and, whole since the obs and
+    resilience slice, obs and resilience."""
     paths = [os.path.join(CONFIGS_DIR, "default.yaml"), os.path.join(CONFIGS_DIR, f"{name}.yaml")]
     got = to_flat_dict(load_config(*paths))
-    partial_keys = {"resilience.sentinel_policy", "resilience.sentinel_spike_factor",
-                    "resilience.sentinel_spike_window", "resilience.sentinel_spike_min_history",
-                    "resilience.max_rollbacks", "resilience.serve_max_queue_requests",
-                    "resilience.serve_retry_after_s", "resilience.serve_deadline_s",
-                    "resilience.breaker_failure_threshold", "resilience.breaker_reset_s",
-                    "resilience.breaker_reset_jitter", "obs.trace_buffer_spans"}
     want = {k: v for k, v in jax_flat_dict(jax_load_config(*paths)).items()
             if k.split(".")[0] in ("data", "lr", "model", "mpi", "loss", "training", "mesh",
-                                   "serving")
-            or k in partial_keys}
+                                   "serving", "obs", "resilience")}
     assert got == want
+
+
+def test_obs_and_resilience_keys_are_honoured_or_named():
+    """No obs.* or resilience.* key is dropped on load: obs.enabled and
+    resilience.preempt_save reach the config, an unknown key of either group
+    raises, and a multi-host key away from its default is named by
+    unsupported_training_options (ROADMAP queue 1 item 6), so Trainer
+    refuses it."""
+    from mine_tpu_torch.config import ResilienceConfig, unsupported_training_options
+
+    default = os.path.join(CONFIGS_DIR, "default.yaml")
+    cfg = load_config(default, overrides={"obs.enabled": True,
+                                          "resilience.preempt_save": False})
+    assert cfg.obs.enabled is True and cfg.resilience.preempt_save is False
+    assert load_config(default).resilience.preempt_save is True
+    assert unsupported_training_options(load_config(default)) == []
+    for key in ("obs.no_such_key", "resilience.no_such_key"):
+        with pytest.raises(KeyError, match="unknown config key"):
+            load_config(default, overrides={key: 1})
+    for key, value in (("resilience.multihost_watchdog_s", 30.0),
+                       ("resilience.multihost_heartbeat_dir", "/shared/hb"),
+                       ("resilience.multihost_bringup_attempts", 5),
+                       ("resilience.multihost_bringup_backoff_s", 0.5)):
+        cfg = load_config(default, overrides={key: value})
+        assert getattr(cfg.resilience, key.split(".")[1]) == value
+        assert getattr(ResilienceConfig(), key.split(".")[1]) != value
+        problems = unsupported_training_options(cfg)
+        assert len(problems) == 1 and key in problems[0] and "queue 1 item 6" in problems[0]
 
