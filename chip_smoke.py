@@ -59,7 +59,7 @@ From the root of a checkout, on a machine with a CUDA device and nvcc:
      twice (a miss, then a hit that runs no encoder) and of a second image,
      each with its host spans, /render of 1, 8 and 64
      offsets (decoded frames equal the engine's own render after the same
-     uint8 rounding; PNG encoding timed apart), 8 concurrent clients x 20
+     uint8 rounding; PNG encoding timed apart), 8 concurrent clients x 10
      rounds on one MPI (requests against dispatches), /healthz, /metrics,
      /debug/trace, GET /mpi/<key> parsed by from_wire, a hot swap to a new
      step (generation 1, the old key still renders, new predicts mint the
@@ -85,7 +85,24 @@ From the root of a checkout, on a machine with a CUDA device and nvcc:
      trained on; a NaN step skipped and a loader error retried on the LLFF
      fixture; the serving CLI with --peak-flops and a failing predict, a
      corrupt swap and a SIGUSR1 dump;
- 10. times every kernel (CUDA events), its plain version and, for the warp
+ 10. trains across ranks (parallel_phase, run right after the main path,
+     while this process holds little device memory): the train CLI under torchrun,
+     two ranks sharing the card over gloo (the script's --train-rank mode
+     records each rank's launches, steps and memory), data=2 and plane=2,
+     dense and streaming, fp32 (first step's loss dict at rtol 1e-4, its
+     gradient and its norm within 5 %) and data=2 bf16 (first step's loss dict
+     within 2 %; its gradient no farther from the fp32 one-process gradient
+     than the bf16 one-process gradient is, x1.5, and its norm likewise),
+     each against a one-process run of the same seed; later steps and the
+     weights after 3 Adam steps are reported beside two one-process runs'
+     own gaps, not held (Adam's first update turns rounding into +-lr, and
+     two identical one-process runs drift apart too); the 768x1024, S=128 recipe at plane=2 (the banded
+     size class; first loss within 2 %); a one-rank NCCL job whose bring-up
+     survives coord_down@init=1; host_stall@step=2 ending both ranks in the
+     named abort (exit 83) within the watchdog window; K5 with a halo plane
+     against its plain version on a plane shard's real inputs, and the two
+     shards composed into the whole render;
+ 11. times every kernel (CUDA events), its plain version and, for the warp
      and its backward, torch's grid_sample, beside each kernel's memory
      bound (the backward also on the captured training operands; the
      warp-composite also at the 768x1024, S=128 size); times predict and
@@ -580,7 +597,7 @@ LLFF_STORED_HW = (378, 504)
 # the feed timing: rounds of the three feeds in turn, steps per feed and
 # round, and how many of those first steps are not counted (the pipeline
 # fills: 4 workers build up to 4 batches ahead)
-FEED_ROUNDS, FEED_STEPS, FEED_SKIP = 3, 6, 2
+FEED_ROUNDS, FEED_STEPS, FEED_SKIP = 2, 6, 2
 # recipe yaml -> fixture writer arguments near the recipe's own size, with
 # at least one batch of train views (DTU's B=8 needs 8); flowers' writer
 # needs square views, so its 384x384 tiles are resized to 384x512
@@ -900,7 +917,7 @@ def decode_png(b64: str) -> np.ndarray:
 
 # the /render rounds: offsets per request, and the concurrent clients
 SERVE_RENDERS = (1, 8, 64)
-SERVE_CLIENTS, SERVE_ROUNDS = 8, 20
+SERVE_CLIENTS, SERVE_ROUNDS = 8, 10
 
 
 def serve_phases(info, dev, ws: str, images: list[np.ndarray]) -> dict:
@@ -2289,6 +2306,478 @@ def obs_resilience_phase(info, dev, train_cfg, train_state, llff_ws: str,
     return out
 
 
+
+# -- 10. the parallel path: ranks of one job sharing the card -------------------------
+
+PARALLEL_STEPS = 3
+# the watchdog window of the host_stall drill, seconds
+STALL_WINDOW_S = 15.0
+
+
+def train_rank_main(out_prefix: str, argv: list[str]) -> int:
+    """One rank of a torchrun job (`chip_smoke.py --train-rank OUT <train
+    CLI args>`): the train CLI's main with TF32 off, then what the rank saw
+    into OUT.r<rank>.json: its kernel launches (K1/K2 by size class), the
+    process group's backend, the mesh, each step's time, its peak memory, a
+    digest of its parameters (replicas must hold the same ones) and what
+    the chaos schedule left pending; rank 0 saves its first step's
+    gradients (the mesh's, all-reduced) to OUT.grads.pt."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch.distributed as dist
+
+    from mine_tpu_torch import train
+    from mine_tpu_torch.ops.kernels import warp as kw
+    from mine_tpu_torch.parallel.mesh import mesh_shape_str
+    from mine_tpu_torch.resilience import chaos
+    from mine_tpu_torch.training import loop
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    seen: dict = {"step_ms": []}
+    step, fit = loop.Trainer.step, loop.Trainer.fit
+
+    def timed_step(self, batch):
+        torch.cuda.synchronize(self.device)
+        t = time.perf_counter()
+        out = step(self, batch)
+        torch.cuda.synchronize(self.device)
+        seen["step_ms"].append((time.perf_counter() - t) * 1e3)
+        if len(seen["step_ms"]) == 1 and self.is_main:
+            save_grads(self.model, f"{out_prefix}.grads.pt")
+        return out
+
+    def recorded_fit(self, *args, **kwargs):
+        seen.update(backend=dist.get_backend() if dist.is_initialized() else None,
+                    world=dist.get_world_size() if dist.is_initialized() else 1,
+                    mesh=mesh_shape_str(self.mesh), plan=self.plan is not None,
+                    host_slice=self.host_slice, device=str(self.device))
+        torch.cuda.reset_peak_memory_stats(self.device)
+        try:
+            return fit(self, *args, **kwargs)
+        finally:
+            with torch.no_grad():
+                params = [p.double() for p in self.model.parameters()]
+                seen["digest"] = [sum(float(p.sum()) for p in params),
+                                  sum(float(p.abs().sum()) for p in params)]
+            seen["peak_allocated_gb"] = torch.cuda.max_memory_allocated(self.device) / 1e9
+
+    loop.Trainer.step, loop.Trainer.fit = timed_step, recorded_fit
+    kw.reset_launches()
+    tally = SizeTally(kw)
+    logged = train.main(argv)
+    torch.cuda.synchronize()
+    schedule = chaos.active()
+    seen.update(logged=logged, launches=dict(kw.launches), sizes=tally.read(),
+                chaos_pending=schedule.pending() if schedule is not None else None)
+    rank = int(os.environ.get("RANK", "0"))
+    with open(f"{out_prefix}.r{rank}.json", "w") as fh:
+        json.dump(seen, fh)
+    return 0
+
+
+def save_grads(model: torch.nn.Module, path: str) -> None:
+    """The gradients a train step left in .grad, by parameter name, on the
+    host."""
+    torch.save({n: p.grad.detach().float().cpu() for n, p in model.named_parameters()
+                if p.grad is not None}, path)
+
+
+def grad_gap(a: dict, b: dict, top: int = 0) -> dict:
+    """How far gradient a lies from gradient b (dicts by parameter name):
+    the relative L2 of a - b, both norms and, with `top`, the parameters
+    holding most of the difference (their share of |a - b|^2 and their own
+    relative gap)."""
+    diff2 = {n: float(((a[n].double() - g.double()) ** 2).sum()) for n, g in b.items()}
+    norm2 = {n: float((g.double() ** 2).sum()) for n, g in b.items()}
+    total = sum(diff2.values())
+    out = {"rel_l2": math.sqrt(total / max(sum(norm2.values()), 1e-30)),
+           "norm": math.sqrt(sum(float((a[n].double() ** 2).sum()) for n in b)),
+           "ref_norm": math.sqrt(sum(norm2.values()))}
+    if top:
+        worst = sorted(diff2, key=diff2.get, reverse=True)[:top]
+        out["top"] = [{"param": n, "share": diff2[n] / max(total, 1e-30),
+                       "rel_l2": math.sqrt(diff2[n] / max(norm2[n], 1e-30))} for n in worst]
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_ranks(out_dir: str, label: str, nproc: int, train_args: list[str],
+              env: dict | None = None, timeout_s: float = 300.0) -> tuple[list[dict], float]:
+    """`python -m torch.distributed.run --nproc-per-node nproc` over this
+    script's rank mode, the train CLI's arguments after it; every rank's
+    record, and the wall time of the launch."""
+    prefix = os.path.join(out_dir, label)
+    # two ranks' caching allocators share the card: segments that grow
+    # instead of new blocks keep each rank's reserve near its use
+    env = {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True", **(env or {})}
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(nproc),
+           "--master-addr", "127.0.0.1", "--master-port", str(free_port()),
+           os.path.abspath(__file__), "--train-rank", prefix, *train_args]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout_s,
+                          env={**os.environ, **(env or {})})
+    seconds = time.perf_counter() - t
+    with open(f"{prefix}.log", "w") as fh:
+        fh.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise AssertionError(f"{label}: torchrun exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    ranks = []
+    for r in range(nproc):
+        with open(f"{prefix}.r{r}.json") as fh:
+            ranks.append(json.load(fh))
+    return ranks, seconds
+
+
+def train_log(ws: str) -> list[dict]:
+    with open(os.path.join(ws, "train_log.jsonl")) as fh:
+        return [json.loads(ln) for ln in fh]
+
+
+def final_state(ws: str) -> dict:
+    from mine_tpu_torch.training import checkpoint as ckpt
+
+    step = ckpt.latest_step(ws)
+    return ckpt.load(ws, step)["model"]
+
+
+def state_gap(a: dict, b: dict, init: dict) -> dict:
+    """How far two runs' weights lie apart: the relative L2 of their
+    difference over the L2 of b's update from `init`, the largest element
+    gap, and the share of elements within rtol 1e-4, atol 1e-5."""
+    diff2 = upd2 = 0.0
+    worst, n_in, n_all = 0.0, 0, 0
+    for key, want in b.items():
+        if not want.dtype.is_floating_point:
+            continue
+        got, w0 = a[key].double(), init[key].double().cpu()
+        want = want.double()
+        diff2 += float(((got - want) ** 2).sum())
+        upd2 += float(((want - w0) ** 2).sum())
+        worst = max(worst, float((got - want).abs().max()))
+        n_in += int(torch.isclose(got, want, rtol=1e-4, atol=1e-5).sum())
+        n_all += want.numel()
+    return {"update_rel_l2": math.sqrt(diff2 / max(upd2, 1e-30)), "max_abs": worst,
+            "share_within_1e-4": n_in / n_all}
+
+
+LOSS_TERMS = ("loss", "loss_rgb_src", "loss_ssim_src", "loss_disp_pt3dsrc", "loss_rgb_tgt",
+              "loss_ssim_tgt", "loss_disp_pt3dtgt", "loss_smooth_src_v2", "loss_smooth_tgt_v2",
+              "psnr_tgt")
+
+
+def loss_gaps(a: list[dict], b: list[dict], keys=LOSS_TERMS) -> list[float]:
+    """The largest relative gap of each logged step's loss dict."""
+    return [max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-12) for k in keys) for x, y in zip(a, b)]
+
+
+def parallel_phase(info, dev, entry, g1) -> dict:
+    """The parallel path (parallel/, resilience/multihost.py) through the
+    train CLI under torchrun, two ranks sharing this card over gloo (NCCL
+    puts one rank on a device, and the machine has one): data=2 and
+    plane=2, dense and streaming, each held against a one-process run of
+    the same seed in this process; the 768x1024, S=128 recipe at plane=2;
+    a one-rank NCCL job whose bring-up survives coord_down@init=1; a
+    host_stall@step=2 drill ending in the named abort within the watchdog
+    window. K5 with a halo plane is held against its plain version on a
+    plane shard's real inputs. Returns each path's launches (summed over
+    ranks) and the K5 halo row's inputs and launches."""
+    import shutil
+
+    from mine_tpu_torch.config import load_config
+    from mine_tpu_torch.data.registry import build_dataset
+    from mine_tpu_torch.models.mpi import init_weights
+    from mine_tpu_torch.ops import mpi_render as mr
+    from mine_tpu_torch.ops.geometry import inverse_3x3
+    from mine_tpu_torch.ops.kernels import warp as kw
+    from mine_tpu_torch.resilience import multihost
+    from mine_tpu_torch.training.loop import Trainer
+    from mine_tpu_torch.training.step import build_model
+
+    import gc
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(root, "build", "chip_smoke", "parallel")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+
+    def release() -> None:
+        """This process's cached blocks back to the card, for the ranks
+        (a Trainer's bound methods hold it in cycles: collect first)."""
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    release()
+    t_phase = time.perf_counter()
+    out = {"launches": {}}
+    default = os.path.join(root, "mine_tpu", "configs", "default.yaml")
+    base = {"data.name": "synthetic", "training.log_interval": 1, "data.num_workers": 0,
+            "training.checkpoint_interval": 1000}
+
+    def cli_args(ws: str, over: dict, steps: int, config: str = default) -> list[str]:
+        return ["--config", config, "--workspace", ws, "--max_steps", str(steps),
+                "--extra_config", json.dumps(over), "--dist-backend", "gloo",
+                "--device", "cuda:0"]
+
+    def reference(label: str, over: dict, steps: int, config: str = default):
+        """The one-process run in this process, as the CLI builds it; its
+        first step's gradients to <label>.grads.pt."""
+        ws = os.path.join(out_dir, label)
+        cfg = load_config(config, overrides=over)
+        tr = Trainer(cfg, ws)
+        step = tr.step
+
+        def recorded_step(batch):
+            out = step(batch)
+            if tr.global_step == 1:
+                save_grads(tr.model, os.path.join(out_dir, f"{label}.grads.pt"))
+            return out
+
+        tr.step = recorded_step
+        tr.fit(build_dataset(cfg, "train", tr.global_batch),
+               build_dataset(cfg, "val", tr.global_batch), max_steps=steps)
+        del tr, step, recorded_step
+        release()
+        return ws
+
+    def first_grads(label: str) -> dict:
+        return torch.load(os.path.join(out_dir, f"{label}.grads.pt"))
+
+    # the one-process runs, twice for fp32: how far two identical runs lie
+    # apart (the backward kernel adds in a run-dependent order)
+    fp32 = {**base, "model.dtype": "float32"}
+    refs = {}
+    for label, over in (("ref_dense_fp32", fp32), ("ref_dense_fp32_again", fp32),
+                        ("ref_streaming_fp32", {**fp32, "mpi.compositor": "streaming"}),
+                        ("ref_dense_bf16", base), ("ref_dense_bf16_again", base)):
+        refs[label] = reference(label, {**over, "data.per_gpu_batch_size": 4}, PARALLEL_STEPS)
+    init = init_weights(build_model(load_config(default, overrides=fp32)),
+                        torch.Generator().manual_seed(0)).state_dict()
+    spread = state_gap(final_state(refs["ref_dense_fp32_again"]),
+                       final_state(refs["ref_dense_fp32"]), init)
+    repeat = {dt: {"loss_gaps": loss_gaps(train_log(refs[f"ref_dense_{dt}_again"]),
+                                          train_log(refs[f"ref_dense_{dt}"])),
+                   "grad_norm_gaps": loss_gaps(train_log(refs[f"ref_dense_{dt}_again"]),
+                                               train_log(refs[f"ref_dense_{dt}"]), ("grad_norm",)),
+                   "grad_norms": [ln["grad_norm"] for ln in train_log(refs[f"ref_dense_{dt}"])]}
+              for dt in ("fp32", "bf16")}
+    # the bf16 recipe's rounding: how far its first gradient lies from fp32's
+    bf16_rounding = grad_gap(first_grads("ref_dense_bf16"), first_grads("ref_dense_fp32"))
+    emit(info, phase="parallel_reference", steps=PARALLEL_STEPS,
+         config="default (resnet50, 384x512, S=32) + synthetic, B=4, fp32 and bf16",
+         fp32_repeat_weights_gap=spread, repeat=repeat,
+         fp32_repeat_grad_gap=grad_gap(first_grads("ref_dense_fp32_again"),
+                                       first_grads("ref_dense_fp32")),
+         bf16_vs_fp32_grad_gap=bf16_rounding,
+         parent_allocated_gb=torch.cuda.memory_allocated() / 1e9,
+         parent_reserved_gb=torch.cuda.memory_reserved() / 1e9,
+         seconds=time.perf_counter() - t_phase)
+
+    runs = {
+        # label: (overrides, reference, fp32)
+        "data2_dense_fp32": ({**fp32, "data.per_gpu_batch_size": 2, "mesh.data_parallel": 2},
+                             "ref_dense_fp32", True),
+        "plane2_dense_fp32": ({**fp32, "data.per_gpu_batch_size": 4, "mesh.plane_parallel": 2,
+                               "mesh.data_parallel": 1}, "ref_dense_fp32", True),
+        "plane2_streaming_fp32": ({**fp32, "data.per_gpu_batch_size": 4,
+                                   "mesh.plane_parallel": 2, "mesh.data_parallel": 1,
+                                   "mpi.compositor": "streaming"}, "ref_streaming_fp32", True),
+        "data2_dense_bf16": ({**base, "data.per_gpu_batch_size": 2, "mesh.data_parallel": 2},
+                             "ref_dense_bf16", False),
+    }
+    results = {}
+    for label, (over, ref, is_fp32) in runs.items():
+        ws = os.path.join(out_dir, label)
+        ranks, seconds = run_ranks(out_dir, label, 2, cli_args(ws, over, PARALLEL_STEPS))
+        if not all(r["backend"] == "gloo" and r["world"] == 2 and r["plan"] for r in ranks):
+            raise AssertionError(f"{label}: not a 2-rank gloo job on a mesh {ranks}")
+        if ranks[0]["digest"] != ranks[1]["digest"]:
+            raise AssertionError(f"{label}: the replicas' weights differ {ranks}")
+        losses = loss_gaps(train_log(ws), train_log(refs[ref]))
+        # the gradient norm, a value of the loss dict: a gradient summed once
+        # too often over the ranks shows there (Adam's update hides it)
+        norms = loss_gaps(train_log(ws), train_log(refs[ref]), ("grad_norm",))
+        row = {"seconds": seconds, "mesh": ranks[0]["mesh"], "loss_gaps": losses,
+               "grad_norm_gaps": norms, "grad_norms": [ln["grad_norm"] for ln in train_log(ws)],
+               "step_ms": [r["step_ms"] for r in ranks],
+               "peak_allocated_gb": [r["peak_allocated_gb"] for r in ranks],
+               "launches": [r["launches"] for r in ranks],
+               "host_slices": [r["host_slice"] for r in ranks],
+               # the first step's gradient against the one-process run's
+               "grad_gap": grad_gap(torch.load(os.path.join(out_dir, f"{label}.grads.pt")),
+                                    first_grads(ref), top=5)}
+        if is_fp32:
+            gap = state_gap(final_state(ws), final_state(refs[ref]), init)
+            row["weights_gap"] = gap
+            # the first step's losses at rtol 1e-4; its gradient norm within
+            # the 5 % that the JAX package's own equivalence tests allow for
+            # discrete selections (edge masks, point gathers, the valid-mask
+            # threshold) flipping on reassociation noise; a double sum is
+            # 100 % off. Later steps and the weights after 3 Adam steps are
+            # reported beside two one-process runs' own gaps: Adam's first
+            # update, lr * sign(g), turns any gradient noise into +-lr.
+            # The gradient vector is held at the same 5 % (relative L2):
+            # data=2 splits the encoder's batch, and its early layers, which
+            # hold most of the norm, move ~2 % evenly (plane=2 ~1e-4); in
+            # float64 on the CPU data=2 equals one process, and its fp32
+            # gradient lies closer to the exact one than one process's.
+            if losses[0] > 1e-4 or norms[0] > 0.05 or row["grad_gap"]["rel_l2"] > 0.05:
+                raise AssertionError(f"{label}: first step's loss dict {losses[0]} (rtol 1e-4), "
+                                     f"gradient norm {norms[0]} or gradient "
+                                     f"{row['grad_gap']['rel_l2']} (5 %) from the one-process "
+                                     "run's")
+        else:
+            # bf16: the first step's loss dict within 2 %. Its gradient is
+            # held by the recipe's own rounding: the bf16 one-process
+            # gradient lies bf16_rounding away from the fp32 one, and
+            # data=2's, which splits the batch's bf16 reductions differently,
+            # may lie no farther (x1.5), in the vector and in its norm. A
+            # gradient summed twice or a statistic synced wrongly lands far
+            # outside (tests/test_torch_parallel.py holds the same witness
+            # against float64 on the CPU).
+            fp32_grads = first_grads("ref_dense_fp32")
+            witness = grad_gap(torch.load(os.path.join(out_dir, f"{label}.grads.pt")),
+                               fp32_grads)
+            norm_gap = abs(witness["norm"] - bf16_rounding["norm"])
+            norm_band = abs(bf16_rounding["norm"] - bf16_rounding["ref_norm"])
+            row["vs_fp32"] = dict(witness, one_process_rel_l2=bf16_rounding["rel_l2"],
+                                  norm_gap=norm_gap, one_process_norm_gap=norm_band)
+            if losses[0] > 0.02 or witness["rel_l2"] > 1.5 * bf16_rounding["rel_l2"] \
+                    or norm_gap > 1.5 * norm_band:
+                raise AssertionError(
+                    f"{label}: bf16 first step's loss dict {losses[0]} from the one-process "
+                    f"run's (2 %); gradient {witness['rel_l2']} from the fp32 gradient against "
+                    f"the one-process bf16 run's {bf16_rounding['rel_l2']} (x1.5); norm "
+                    f"{witness['norm']} against {bf16_rounding['norm']}, the one-process bf16 "
+                    f"norm's gap to fp32 {norm_band} (x1.5)")
+        results[label] = row
+        emit(info, phase="parallel", path=label, **row)
+        out["launches"][f"parallel_{label}"] = {
+            "kernels": {k: sum(r["launches"][k] for r in ranks) for k in kw.launches},
+            "sizes": {k: {c: sum(r["sizes"][k][c] for r in ranks) for c in ("resident", "banded")}
+                      for k in ("warp_bilinear", "warp_bilinear_grad")}}
+        if label == "plane2_streaming_fp32":
+            # rank 0 holds the front planes: each of its K5 launches has a halo
+            out["k5_halo_launches"] = ranks[0]["launches"]["warp_composite"]
+
+    # the 768x1024, S=128 recipe with remat at plane=2, 2 steps, against one
+    # process's first loss (bf16: 2 %)
+    highres = os.path.join(root, "mine_tpu", "configs", "llff_highres.yaml")
+    hr_over = {**base, "mpi.compositor": "streaming"}
+    hr_ref = reference("ref_highres", hr_over, 2, highres)
+    hr_ws = os.path.join(out_dir, "plane2_highres")
+    ranks, seconds = run_ranks(out_dir, "plane2_highres", 2, cli_args(
+        hr_ws, {**hr_over, "mesh.plane_parallel": 2, "mesh.data_parallel": 1}, 2, highres))
+    hr_gap = loss_gaps(train_log(hr_ws)[:1], train_log(hr_ref)[:1])
+    banded = [r["sizes"]["warp_bilinear"]["banded"] for r in ranks]
+    if hr_gap[0] > 0.02 or not all(banded):
+        raise AssertionError(f"plane2_highres: first loss gap {hr_gap}, banded K1 {banded}")
+    emit(info, phase="parallel", path="plane2_highres",
+         config="llff_highres.yaml + synthetic, streaming, plane=2 (S=64 a rank)",
+         seconds=seconds, first_loss_gap=hr_gap[0],
+         step_ms=[r["step_ms"] for r in ranks],
+         peak_allocated_gb=[r["peak_allocated_gb"] for r in ranks],
+         launches=[r["launches"] for r in ranks], sizes=[r["sizes"] for r in ranks])
+    out["launches"]["parallel_plane2_highres"] = {
+        "kernels": {k: sum(r["launches"][k] for r in ranks) for k in kw.launches},
+        "sizes": {k: {c: sum(r["sizes"][k][c] for r in ranks) for c in ("resident", "banded")}
+                  for k in ("warp_bilinear", "warp_bilinear_grad")}}
+    shutil.rmtree(hr_ref, ignore_errors=True)
+    shutil.rmtree(hr_ws, ignore_errors=True)
+
+    # one rank over NCCL through the parallel path, its bring-up failing once
+    # at the coord_down seam and retried
+    nccl_ws = os.path.join(out_dir, "nccl1")
+    args = cli_args(nccl_ws, {**base, "resilience.multihost_bringup_backoff_s": 0.5}, 2)
+    args[args.index("gloo")] = "nccl"
+    ranks, seconds = run_ranks(out_dir, "nccl1", 1, args,
+                               env={"MINE_TPU_FAULTS": "coord_down@init=1"})
+    with open(os.path.join(out_dir, "nccl1.log")) as fh:
+        retried = "bring-up attempt 1/3 failed" in fh.read()
+    if ranks[0]["backend"] != "nccl" or not ranks[0]["plan"] or ranks[0]["chaos_pending"] != [] \
+            or not retried or not math.isfinite(ranks[0]["logged"]["loss"]):
+        raise AssertionError(f"nccl1: {ranks[0]}, retried {retried}")
+    emit(info, phase="parallel", path="nccl1_coord_down", backend=ranks[0]["backend"],
+         mesh=ranks[0]["mesh"], retried=retried, seconds=seconds,
+         loss=ranks[0]["logged"]["loss"], launches=ranks[0]["launches"])
+    out["launches"]["parallel_nccl1"] = {
+        "kernels": dict(ranks[0]["launches"]), "sizes": ranks[0]["sizes"]}
+
+    # host_stall@step=2 on rank 1: both ranks must take the named abort
+    # (exit 83) within the watchdog window of their last heartbeat
+    stall_ws = os.path.join(out_dir, "stall")
+    port = free_port()
+    procs = []
+    for rank in range(2):
+        env = {**os.environ, "RANK": str(rank), "LOCAL_RANK": str(rank), "WORLD_SIZE": "2",
+               "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+        if rank == 1:
+            env["MINE_TPU_FAULTS"] = "host_stall@step=2"
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "mine_tpu_torch.train", *cli_args(stall_ws, {
+                **base, "data.per_gpu_batch_size": 2, "mesh.data_parallel": 2,
+                "resilience.multihost_watchdog_s": STALL_WINDOW_S}, 6)],
+            cwd=root, env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True))
+    t = time.perf_counter()
+    codes = [p.wait(timeout=300) for p in procs]
+    stall_s = time.perf_counter() - t
+    hb = os.path.join(stall_ws, "heartbeats")
+    markers = multihost.abort_markers(hb)
+    beats = {r: multihost.read_beat(multihost.beat_path(hb, r)) for r in range(2)}
+    late = {r: os.path.getmtime(os.path.join(hb, f"multihost_abort_p{r}.json")) - beats[r]["ts"]
+            for r in markers}
+    if codes != [multihost.EXIT_HOST_STALL] * 2 or set(markers) != {0, 1} \
+            or "host_stall" not in {m["reason"] for m in markers.values()} \
+            or max(late.values()) > STALL_WINDOW_S + 5.0:
+        raise AssertionError(f"host_stall drill: exit codes {codes}, markers {markers}, "
+                             f"beats {beats}, marker after last beat {late}:\n"
+                             + "\n".join(p.stderr.read()[-2000:] for p in procs))
+    emit(info, phase="parallel", path="host_stall", exit_codes=codes,
+         reasons={r: m["reason"] for r, m in markers.items()},
+         suspect=[m.get("suspect") for m in markers.values()],
+         last_beat_steps={r: b["step"] for r, b in beats.items()},
+         abort_after_last_beat_s=late, window_s=STALL_WINDOW_S, seconds=stall_s,
+         stragglers=multihost.straggler_table(hb))
+
+    # K5 with the halo on a plane shard's real inputs: the served MPI's front
+    # half, the back half's first plane as its halo
+    s_half = entry.disparity.shape[1] // 2
+    k_inv = inverse_3x3(entry.k)
+    halo_in = (entry.mpi_rgb[:, :s_half].contiguous(), entry.mpi_sigma[:, :s_half].contiguous(),
+               *mr.streaming_matrices(entry.disparity[:, :s_half], g1, k_inv, entry.k,
+                                      halo_depth=1.0 / entry.disparity[:, s_half]))
+    halo_out = kw.warp_composite(*halo_in)
+    halo_err = check_close("warp_composite with a halo plane", halo_out,
+                           kw.warp_composite_matrix_plain(*halo_in), **TOL)
+    # the front half with its halo, then the back half, is the whole render
+    back = kw.warp_composite(entry.mpi_rgb[:, s_half:].contiguous(),
+                             entry.mpi_sigma[:, s_half:].contiguous(),
+                             *mr.streaming_matrices(entry.disparity[:, s_half:], g1, k_inv,
+                                                    entry.k))
+    whole = kw.warp_composite(entry.mpi_rgb, entry.mpi_sigma,
+                              *mr.streaming_matrices(entry.disparity, g1, k_inv, entry.k))
+    t_front = halo_out[:, 6:7]
+    combined = torch.cat([halo_out[:, :5] + t_front * back[:, :5],
+                          halo_out[:, 5:6] + back[:, 5:6], t_front * back[:, 6:7]], dim=1)
+    compose_err = check_close("two plane shards composed vs the whole", combined, whole,
+                              rtol=1e-4, atol=1e-5)
+    emit(info, phase="kernel_check", kernel="warp_composite", case="plane shard with halo",
+         shape=list(halo_in[0].shape), max_abs_err=halo_err, composed_vs_whole_err=compose_err,
+         tolerance=TOL)
+    out.update(k5_halo=halo_in, k5_halo_err=halo_err, seconds=time.perf_counter() - t_phase)
+    emit(info, phase="parallel", path="summary", seconds=out["seconds"],
+         note="two ranks share one card over gloo: these step times are no scaling figure")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a "
@@ -2525,6 +3014,10 @@ def main() -> int:
          card_vs_cpu_small_max_abs=cpu_gap, streaming_frame_peak_alloc_bytes=frame_alloc,
          one_shw_fp32_array_bytes=s * h * w * 4)
 
+    # 10. the parallel path: two ranks of a torchrun job sharing the card, run
+    # here, while this process holds little of the card's memory
+    par = parallel_phase(info, dev, entries[0], torch.from_numpy(zoom[20])[None].to(dev))
+
     # 5. the training path at full width: Trainer.fit on synthetic batches
     from mine_tpu_torch.data.registry import build_dataset
     from mine_tpu_torch.training.loop import Trainer
@@ -2698,7 +3191,7 @@ def main() -> int:
     # 9. observability and resilience of training and serving
     obs = obs_resilience_phase(info, dev, train_cfg, train_state, llff_ws, images[0])
 
-    # 10. timings
+    # 11. timings
     def grid_of(cx, cy, hh, ww):
         return torch.stack([(cx + 0.5) / (0.5 * ww) - 1.0, (cy + 0.5) / (0.5 * hh) - 1.0], -1)
 
@@ -2739,7 +3232,7 @@ def main() -> int:
          median={k: statistics.median(v) for k, v in spread.items()}, runs=spread,
          share_of_bound=warp_rows["dense"]["bound_ms"] / statistics.median(spread["ms"]))
     paths = {**streaming["launches"], **data_launches, **serve["launches"],
-             **fleet["launches"], **obs["launches"]}
+             **fleet["launches"], **obs["launches"], **par["launches"]}
 
     def launches_of(name: str, size_class: str) -> dict:
         """The launches of `name` at one TPU size class on each main path: the
@@ -2789,6 +3282,29 @@ def main() -> int:
         max_abs_err=k5_err, ms=k5_row["ms"], plain_ms=k5_row["plain_ms"],
         bound_ms=k5_row["bound_ms"], bound_by=k5_row["bound_by"], library_ms=None,
     ))
+    # K5 with a halo plane, on a plane shard's real inputs (the front half of
+    # the served MPI); its launches are rank 0's of the plane=2 streaming run
+    kh_in = par["k5_halo"]
+    kh_out = kw.warp_composite(*kh_in)
+    plane_pix = kh_in[0][..., 0].numel()
+    b_ms, b_by = bound_ms(nbytes(*kh_in) + nbytes(kh_out), plane_pix * 96)
+    kh_row = dict(
+        shape={"mpi_rgb": list(kh_in[0].shape), "h_src_tgt": list(kh_in[2].shape)},
+        ms=time_cuda_ms(lambda: kw.warp_composite(*kh_in)),
+        plain_ms=time_cuda_ms(lambda: kw.warp_composite_matrix_plain(*kh_in), reps=5, inner=1),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=par["k5_halo_err"],
+    )
+    emit(info, phase="timing", kernel="warp_composite", case="plane shard with halo", **kh_row)
+    kernels.append(dict(
+        name=f"warp_composite (plane shard with halo, S={kh_in[0].shape[1]})", route="cuda",
+        source="mine_tpu_torch/csrc/warp_composite.cu",
+        replaces="mine_tpu/ops/pallas/warp.py:689", shape=kh_row["shape"],
+        launches=par["k5_halo_launches"],
+        launches_by_path={"parallel_plane2_streaming_fp32 rank 0": par["k5_halo_launches"]},
+        max_abs_err=kh_row["max_abs_err"], ms=kh_row["ms"], plain_ms=kh_row["plain_ms"],
+        bound_ms=kh_row["bound_ms"], bound_by=kh_row["bound_by"], library_ms=None,
+    ))
+    del kh_in, kh_out
     # K5 at the 768x1024, S=128 recipe's size, held against its plain version
     k5h = streaming["k5_highres"]
     k5h_out = kw.warp_composite(*k5h)
@@ -2976,4 +3492,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 2 and sys.argv[1] == "--train-rank":
+        sys.exit(train_rank_main(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

@@ -1,16 +1,15 @@
 """The configuration the port reads: the `data`, `lr`, `model`, `mpi`,
-`loss`, `training`, `mesh`, `resilience`, `obs` and `serving` groups of
-mine_tpu/config.py's Config, with the same dot-keys and defaults.
+`loss`, `training`, `mesh`, `parallel`, `resilience`, `obs` and `serving`
+groups of mine_tpu/config.py's Config, with the same dot-keys and defaults.
 
 Config files are the JAX package's flat dot-key YAML (mine_tpu/configs/*.yaml
-are read as data files). Keys of the group not ported (parallel) belong to a
-part not ported yet and are skipped on load; an unknown key inside a ported
-group is an error, as in the JAX loader. Keys the port reads but does not
-honour yet raise where they would take effect (`unsupported_training_options`,
-among them the `resilience.multihost_*` keys, and the serving engine's
-coarse-to-fine check). `save_config` writes the flat dot-key YAML
-the loader reads (the workspace's params.yaml), which the JAX loader reads
-too.
+are read as data files). Every group is ported whole; an unknown key is an
+error, as in the JAX loader. Keys the port reads but does not honour yet
+raise where they would take effect (`unsupported_training_options`: the
+fsdp axis, ZeRO-1 and the partition-rule rows; coarse-to-fine; warm starts
+that are not a converted .npz; and the serving engine's coarse-to-fine
+check). `save_config` writes the flat dot-key YAML the loader reads (the
+workspace's params.yaml), which the JAX loader reads too.
 """
 
 from __future__ import annotations
@@ -110,6 +109,18 @@ class MeshConfig:
 
 
 @dataclass(frozen=True)
+class ParallelConfig:
+    # ZeRO-1 optimizer-state sharding over the batch replicas, the leaf size
+    # under which a leaf stays replicated, and extra partition-rule rows
+    # ("pattern = axes") prepended to the JAX package's table
+    # (mine_tpu/parallel/rules.py): read, and refused away from these
+    # defaults until the port shards state (unsupported_training_options)
+    zero1: bool = False
+    zero1_min_size: int = 1024
+    rules: tuple[str, ...] = ()
+
+
+@dataclass(frozen=True)
 class ResilienceConfig:
     # the training sentinel (resilience/sentinel.py): "off" | "skip" |
     # "rollback" | "abort"
@@ -133,9 +144,9 @@ class ResilienceConfig:
     breaker_failure_threshold: int = 5
     breaker_reset_s: float = 30.0
     breaker_reset_jitter: float = 0.2
-    # the cross-host watchdog and retrying bring-up of multi-host training
-    # (mine_tpu/resilience/multihost.py): read, and refused away from these
-    # defaults until ROADMAP queue 1 item 6 (unsupported_training_options)
+    # the cross-host watchdog (0 = off), the heartbeat directory (default
+    # <workspace>/heartbeats) and the retrying bring-up of multi-process
+    # training (resilience/multihost.py)
     multihost_watchdog_s: float = 0.0
     multihost_heartbeat_dir: str = ""
     multihost_bringup_attempts: int = 3
@@ -211,6 +222,7 @@ class Config:
     loss: LossConfig = field(default_factory=LossConfig)
     training: TrainingConfig = field(default_factory=TrainingConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
     resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
     obs: ObsConfig = field(default_factory=ObsConfig)
     serving: ServingConfig = field(default_factory=ServingConfig)
@@ -301,8 +313,7 @@ def load_config(*yaml_paths: str,
         layers.append(json.loads(overrides) if isinstance(overrides, str) else overrides)
     for layer in layers:
         for key, value in layer.items():
-            group = key.partition(".")[0]
-            if key in _RETIRED_KEYS or group not in _GROUPS:
+            if key in _RETIRED_KEYS:
                 continue
             if key not in flat:
                 raise KeyError(f"unknown config key: {key!r}")
@@ -329,15 +340,14 @@ def unsupported_training_options(cfg: Config) -> list[str]:
     if cfg.mpi.num_bins_fine > 0:
         found.append("mpi.num_bins_fine > 0 waits for ROADMAP queue 1 item 5 "
                      "(coarse-to-fine)")
-    mesh = cfg.mesh
-    if mesh.data_parallel not in (-1, 1) or mesh.fsdp_parallel > 1 or mesh.plane_parallel > 1:
-        found.append(f"mesh sizes {dataclasses.astuple(mesh)} wait for ROADMAP queue 1 "
-                     "item 6 (parallel/)")
-    defaults = ResilienceConfig()
-    for name in ("multihost_watchdog_s", "multihost_heartbeat_dir",
-                 "multihost_bringup_attempts", "multihost_bringup_backoff_s"):
-        value = getattr(cfg.resilience, name)
-        if value != getattr(defaults, name):
-            found.append(f"resilience.{name}={value!r}: multi-host training waits for "
-                         "ROADMAP queue 1 item 6 (parallel/, resilience/multihost.py)")
+    if cfg.mesh.fsdp_parallel > 1:
+        found.append(f"mesh.fsdp_parallel={cfg.mesh.fsdp_parallel}: the fsdp axis waits for "
+                     "ROADMAP queue 1 item 6 (slice 10: fsdp, ZeRO-1, parallel/rules.py)")
+    if cfg.parallel.zero1:
+        found.append("parallel.zero1=True: ZeRO-1 waits for ROADMAP queue 1 item 6 "
+                     "(slice 10: fsdp, ZeRO-1, parallel/rules.py)")
+    if cfg.parallel.rules:
+        found.append(f"parallel.rules={list(cfg.parallel.rules)!r}: the partition-rule table "
+                     "waits for ROADMAP queue 1 item 6 (slice 10: fsdp, ZeRO-1, "
+                     "parallel/rules.py)")
     return found

@@ -9,13 +9,19 @@
 //   [hx, hy, hz] = H_src_tgt[n, s] [px, py, 1], |hz| < 1e-8 pushed to +-1e-8,
 //   (x, y) = (hx / hz, hy / hz), the sample point in the source;
 //   xyz_s = M[n, s] [clamp(x), clamp(y), 1] + t[n], the target-frame point;
-//   dist_s = |xyz_{s+1} - xyz_s|, and the background's 1e3 for the last plane;
+//   dist_s = |xyz_{s+1} - xyz_s|, and the background's 1e3 for the last plane,
+//   unless the matrices hold a halo plane past the payload's last (below);
 // then rgb + sigma sampled with the warp's border-clamped bilinear tap,
 // sigma zeroed where z_s < 0, and
 //   tau = exp(-sigma * dist), w = T * (1 - tau),
 //   acc_rgb += w * rgb, acc_z += w * z, acc_w += w,
 //   acc_valid += (x, y) inside (-1, W) x (-1, H),  T <- T * (tau + 1e-6).
 // Output (N, 7, H, W): 3 rgb sums, z sum, weight sum, valid count, T.
+// The halo: a plane shard but the last (mine_tpu_torch/parallel/plane_sharding.py)
+// passes the matrices of S + 1 planes for an S-plane payload, the extra one
+// being the next shard's first plane. Its point is computed like any other
+// plane's, and the payload's last distance is to it; nothing of it is read.
+// The Pallas kernel takes `dist` as an operand, so it expresses this already.
 // The coordinate arithmetic is written with round-to-nearest intrinsics in
 // the torch prep's order of operations (ops/geometry.py apply_3x3,
 // ops/homography.py, ops/mpi_render.py), so no multiply-add is contracted
@@ -112,14 +118,15 @@ __global__ void __launch_bounds__(kThreads)
     warp_composite_kernel(const float* __restrict__ mpi_rgb, const float* __restrict__ mpi_sigma,
                           const float* __restrict__ h_src_tgt, const float* __restrict__ xyz_m,
                           const float* __restrict__ xyz_t, float* __restrict__ out, int s,
-                          int h, int w) {
+                          int sm, int h, int w) {
   extern __shared__ float4 smem[];
   float* maps = reinterpret_cast<float*>(smem);
   const int64_t n = blockIdx.y;
   const int64_t hw = (int64_t)h * w;
-  for (int k = threadIdx.x; k < s * kMapFloats; k += kThreads) {
+  // sm = s planes of matrices, or s + 1 with the halo plane
+  for (int k = threadIdx.x; k < sm * kMapFloats; k += kThreads) {
     const int sp = k / kMapFloats, e = k - sp * kMapFloats;
-    const int64_t q = (n * s + sp) * 9;
+    const int64_t q = (n * sm + sp) * 9;
     maps[k] = e < 9 ? __ldg(h_src_tgt + q + e) : e < 18 ? __ldg(xyz_m + q + e - 9) : 0.0f;
   }
   __syncthreads();
@@ -143,7 +150,7 @@ __global__ void __launch_bounds__(kThreads)
     float v[4][4];
     load_corners(rgb_n + s0 * hw * 3, sigma_n + s0 * hw, cur.tap, w, v);
     for (int sp = s0; sp < s1; ++sp) {
-      const bool has_next = sp + 1 < s;
+      const bool has_next = sp + 1 < sm;
       Plane nxt = cur;
       float nv[4][4] = {};
       if (has_next) nxt = plane_at(maps + (sp + 1) * kMapFloats, t, px, py, h, w);
@@ -212,13 +219,13 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 // mpi_rgb (n, s, h, w, 3) and mpi_sigma (n, s, h, w, 1), contiguous; h_src_tgt
-// and xyz_m (n, s, 3, 3); xyz_t (n, 3); out (n, 7, h, w). The wrapper checks
-// shapes and layouts before it calls.
+// and xyz_m (n, sm, 3, 3), sm = s, or s + 1 with the halo plane; xyz_t (n, 3);
+// out (n, 7, h, w). The wrapper checks shapes and layouts before it calls.
 extern "C" int mine_warp_composite_f32(const void* mpi_rgb, const void* mpi_sigma,
                                        const void* h_src_tgt, const void* xyz_m,
-                                       const void* xyz_t, void* out, int n, int s, int h,
-                                       int w, void* stream) {
-  const int smem = s * kMapFloats * (int)sizeof(float);
+                                       const void* xyz_t, void* out, int n, int s, int sm,
+                                       int h, int w, void* stream) {
+  const int smem = sm * kMapFloats * (int)sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         warp_composite_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -228,6 +235,6 @@ extern "C" int mine_warp_composite_f32(const void* mpi_rgb, const void* mpi_sigm
   const dim3 grid((unsigned int)((hw + kPixels - 1) / kPixels), n);
   warp_composite_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)mpi_rgb, (const float*)mpi_sigma, (const float*)h_src_tgt,
-      (const float*)xyz_m, (const float*)xyz_t, (float*)out, s, h, w);
+      (const float*)xyz_m, (const float*)xyz_t, (float*)out, s, sm, h, w);
   return (int)cudaGetLastError();
 }

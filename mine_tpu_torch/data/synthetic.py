@@ -177,9 +177,10 @@ class SyntheticDataset:
 
     @property
     def num_eval_examples(self) -> int:
-        """Examples in one pass (no batch is padded): run_evaluation's audit."""
-        rows = self.host_slice[1] if self.host_slice else self.global_batch
-        return self.steps_per_epoch * rows
+        """Examples in one pass over every host's rows (no batch is padded):
+        run_evaluation's audit, which counts the whole mesh's examples, as
+        the frame loaders' count (data/frames.py)."""
+        return self.steps_per_epoch * self.global_batch
 
     def epoch(self, epoch: int):
         start, count = self.host_slice or (0, self.global_batch)

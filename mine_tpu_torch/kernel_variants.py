@@ -15,7 +15,10 @@ decompositions is held against the plain version (1e-5; the backward at
 1e-5 of max |grad_src|). The decompositions drop the shared-memory atomics
 or the global ones, give wrong sums by design, and only split the time.
 Each result line is JSON with the card's name and power limit, and names
-the atomic instructions nvcc emitted.
+the atomic instructions nvcc emitted. The shipped warp-composite and the
+same source without its halo plane (plane counts read from the payload
+alone) are then timed in turns, a b b a, and must give bit-equal outputs
+when no halo is passed: what the halo costs a render that has none.
 """
 
 from __future__ import annotations
@@ -43,7 +46,16 @@ COMPOSITE_VARIANTS = [
     ("4 lanes", [(_K5_LANES, "constexpr int kLanes = 4;")]),
     ("8 lanes", [(_K5_LANES, "constexpr int kLanes = 8;")]),
     ("2 lanes, 256 threads", [(_K5_THREADS, "constexpr int kThreads = 256;")]),
+    # the kernel before the halo plane: plane counts read from the payload's
+    # S alone (the wrapper passes sm = s without a halo, so the output must
+    # be the shipped kernel's, bit for bit)
+    ("no halo plane", [("k < sm * kMapFloats", "k < s * kMapFloats"),
+                       ("(n * sm + sp) * 9", "(n * s + sp) * 9"),
+                       ("const bool has_next = sp + 1 < sm;", "const bool has_next = sp + 1 < s;")]),
 ]
+# the two K5 sources timed in turns, TURNS rounds
+HALO_PAIR = ("shipped: 2 lanes, 128 threads", "no halo plane")
+TURNS = 6
 _K2_TILE = "constexpr int kTileW = 64, kTileH = 4;"
 _K2_SHARED_ADDS = [
     (f"if (t.v{k}) atomicAdd(tp + {o}, gv * w{k});", f"if (t.v{k}) tp[{o}] += gv * w{k};")
@@ -144,7 +156,7 @@ def main() -> int:
             fn.argtypes = kw._SIGNATURES["warp_composite"]["mine_warp_composite_f32"]
 
             def launch(fn=fn):
-                fn(*(t.data_ptr() for t in ops), out.data_ptr(), 1, s, h, w, stream)
+                fn(*(t.data_ptr() for t in ops), out.data_ptr(), 1, s, s, h, w, stream)
 
             launch()
             torch.cuda.synchronize()
@@ -153,6 +165,27 @@ def main() -> int:
                 raise AssertionError(f"warp_composite variant {name!r}: max abs err {err}")
             emit(info, kernel="warp_composite", variant=name, pose=label, ms=time_cuda_ms(launch),
                  max_abs_err=err, atomics=_atomics(libs["warp_composite", name]))
+        # the halo's cost: the shipped kernel and the one before the halo in
+        # turns (a, b, b, a), their outputs bit-equal
+        outs, turns = {}, {name: [] for name in HALO_PAIR}
+        for name in HALO_PAIR:
+            fn = libs["warp_composite", name].mine_warp_composite_f32
+            outs[name] = torch.empty_like(want)
+            fn(*(t.data_ptr() for t in ops), outs[name].data_ptr(), 1, s, s, h, w, stream)
+        torch.cuda.synchronize()
+        if not torch.equal(*outs.values()):
+            raise AssertionError("the shipped warp_composite without a halo is not bit-equal "
+                                 "to the kernel before the halo")
+        for r in range(TURNS):
+            for name in HALO_PAIR if r % 2 == 0 else HALO_PAIR[::-1]:
+                fn = libs["warp_composite", name].mine_warp_composite_f32
+                out = outs[name]
+                turns[name].append(time_cuda_ms(
+                    lambda fn=fn, out=out: fn(*(t.data_ptr() for t in ops), out.data_ptr(), 1, s,
+                                             s, h, w, stream)))
+        emit(info, kernel="warp_composite", case="halo cost, in turns", pose=label,
+             bit_equal=True, runs_ms=turns,
+             median_ms={name: float(np.median(v)) for name, v in turns.items()})
 
     n = 128
     g_test = pose(0.08, -0.04, 0.15)

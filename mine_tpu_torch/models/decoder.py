@@ -74,20 +74,20 @@ class Conv3x3(nn.Module):
 class ConvBlock(nn.Module):
     """Conv3x3 -> BN -> ELU."""
 
-    def __init__(self, c_in: int, c_out: int):
+    def __init__(self, c_in: int, c_out: int, group=None):
         super().__init__()
         self.conv = Conv3x3(c_in, c_out)
-        self.bn = BatchNorm2d(c_out)
+        self.bn = BatchNorm2d(c_out, group)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.elu(self.bn(self.conv(x)))
 
 
-def _conv_bn_leaky(c_in: int, c_out: int, kernel: int) -> nn.Sequential:
+def _conv_bn_leaky(c_in: int, c_out: int, kernel: int, group=None) -> nn.Sequential:
     """k x k zero-padded conv (no bias) -> BN -> LeakyReLU(0.1)."""
     return nn.Sequential(
         nn.Conv2d(c_in, c_out, kernel, padding=(kernel - 1) // 2, bias=False),
-        BatchNorm2d(c_out),
+        BatchNorm2d(c_out, group),
         nn.LeakyReLU(0.1),
     )
 
@@ -100,11 +100,18 @@ class MPIDecoder(nn.Module):
     scale's sigma is multiplied by a per-(b, s) plane keep mask and scaled by
     1 / (1 - p). The caller draws the masks, `sigma_keep` (len(scales), B, S)
     in the order of `scales`, so that the draw comes from its own generator
-    and a recompute sees the same mask."""
+    and a recompute sees the same mask.
+
+    BatchNorm statistics (train mode) sync over process groups as the JAX
+    decoder's axes: the encoder extension, which sees the batch's /32
+    feature, over `batch_group` (the batch replicas); the up-stages, whose
+    batch is B*S with the planes split over the plane axis, over
+    `stage_group` (batch replicas x plane)."""
 
     def __init__(self, num_ch_enc: tuple[int, ...], multires: int = 10,
                  use_alpha: bool = False, scales: tuple[int, ...] = (0, 1, 2, 3),
-                 width_multiple: int = 1, sigma_dropout_rate: float = 0.0):
+                 width_multiple: int = 1, sigma_dropout_rate: float = 0.0,
+                 batch_group=None, stage_group=None):
         super().__init__()
         self.multires = multires
         self.use_alpha = use_alpha
@@ -114,17 +121,17 @@ class MPIDecoder(nn.Module):
         m = max(width_multiple, 1)
         dec = [-(-c // m) * m for c in NUM_CH_DEC]
         top = num_ch_enc[-1]
-        self.conv_down1 = _conv_bn_leaky(top, 512, 1)
-        self.conv_down2 = _conv_bn_leaky(512, 256, 3)
-        self.conv_up1 = _conv_bn_leaky(256, 256, 3)
-        self.conv_up2 = _conv_bn_leaky(256, top, 1)
+        self.conv_down1 = _conv_bn_leaky(top, 512, 1, batch_group)
+        self.conv_down2 = _conv_bn_leaky(512, 256, 3, batch_group)
+        self.conv_up1 = _conv_bn_leaky(256, 256, 3, batch_group)
+        self.conv_up2 = _conv_bn_leaky(256, top, 1, batch_group)
         self.pool = nn.MaxPool2d(3, 2, 1)
         convs = {}
         for i in range(4, -1, -1):
             c_in = top + e if i == 4 else dec[i + 1]
-            convs[tuple_to_str(("upconv", i, 0))] = ConvBlock(c_in, dec[i])
+            convs[tuple_to_str(("upconv", i, 0))] = ConvBlock(c_in, dec[i], stage_group)
             c_in = dec[i] + (num_ch_enc[i - 1] + e if i > 0 else 0)
-            convs[tuple_to_str(("upconv", i, 1))] = ConvBlock(c_in, dec[i])
+            convs[tuple_to_str(("upconv", i, 1))] = ConvBlock(c_in, dec[i], stage_group)
         for s in self.scales:
             convs[tuple_to_str(("dispconv", s))] = Conv3x3(dec[s], 4)
         self.convs = nn.ModuleDict(convs)

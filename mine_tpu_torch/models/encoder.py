@@ -3,8 +3,9 @@
 torchvision's module names (conv1, bn1, layer{k}.{b}.conv{c}/bn{c},
 downsample.{0,1}) nested under `encoder.`, the layout of the reference MINE
 checkpoints. ImageNet normalisation runs inline on the [0, 1] input;
-BatchNorm (models/norm.py) has the JAX package's semantics. Returns the
-5-feature pyramid at strides 2/4/8/16/32, NCHW.
+BatchNorm (models/norm.py) has the JAX package's semantics, its train-mode
+statistics synced over `group` when one is given (the batch replicas).
+Returns the 5-feature pyramid at strides 2/4/8/16/32, NCHW.
 """
 
 from __future__ import annotations
@@ -28,22 +29,22 @@ def encoder_channels(num_layers: int) -> tuple[int, ...]:
     return base
 
 
-def _downsample(c_in: int, c_out: int, stride: int) -> nn.Sequential | None:
+def _downsample(c_in: int, c_out: int, stride: int, group=None) -> nn.Sequential | None:
     if stride == 1 and c_in == c_out:
         return None
     return nn.Sequential(
-        nn.Conv2d(c_in, c_out, 1, stride, bias=False), BatchNorm2d(c_out)
+        nn.Conv2d(c_in, c_out, 1, stride, bias=False), BatchNorm2d(c_out, group)
     )
 
 
 class BasicBlock(nn.Module):
-    def __init__(self, c_in: int, c_out: int, stride: int):
+    def __init__(self, c_in: int, c_out: int, stride: int, group=None):
         super().__init__()
         self.conv1 = nn.Conv2d(c_in, c_out, 3, stride, 1, bias=False)
-        self.bn1 = BatchNorm2d(c_out)
+        self.bn1 = BatchNorm2d(c_out, group)
         self.conv2 = nn.Conv2d(c_out, c_out, 3, 1, 1, bias=False)
-        self.bn2 = BatchNorm2d(c_out)
-        self.downsample = _downsample(c_in, c_out, stride)
+        self.bn2 = BatchNorm2d(c_out, group)
+        self.downsample = _downsample(c_in, c_out, stride, group)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = torch.relu(self.bn1(self.conv1(x)))
@@ -53,16 +54,16 @@ class BasicBlock(nn.Module):
 
 
 class Bottleneck(nn.Module):
-    def __init__(self, c_in: int, c_out: int, stride: int):
+    def __init__(self, c_in: int, c_out: int, stride: int, group=None):
         super().__init__()
         squeeze = c_out // 4
         self.conv1 = nn.Conv2d(c_in, squeeze, 1, bias=False)
-        self.bn1 = BatchNorm2d(squeeze)
+        self.bn1 = BatchNorm2d(squeeze, group)
         self.conv2 = nn.Conv2d(squeeze, squeeze, 3, stride, 1, bias=False)
-        self.bn2 = BatchNorm2d(squeeze)
+        self.bn2 = BatchNorm2d(squeeze, group)
         self.conv3 = nn.Conv2d(squeeze, c_out, 1, bias=False)
-        self.bn3 = BatchNorm2d(c_out)
-        self.downsample = _downsample(c_in, c_out, stride)
+        self.bn3 = BatchNorm2d(c_out, group)
+        self.downsample = _downsample(c_in, c_out, stride, group)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = torch.relu(self.bn1(self.conv1(x)))
@@ -75,7 +76,7 @@ class Bottleneck(nn.Module):
 class ResNet(nn.Module):
     """The headless torchvision ResNet, returning every stage's output."""
 
-    def __init__(self, num_layers: int):
+    def __init__(self, num_layers: int, group=None):
         super().__init__()
         if num_layers not in STAGE_BLOCKS:
             raise ValueError(f"{num_layers} is not a supported resnet depth "
@@ -83,14 +84,14 @@ class ResNet(nn.Module):
         block = Bottleneck if num_layers in BOTTLENECK else BasicBlock
         widths = encoder_channels(num_layers)
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
-        self.bn1 = BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64, group)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
         c_in = 64
         for stage, n_blocks in enumerate(STAGE_BLOCKS[num_layers]):
             blocks = []
             for b in range(n_blocks):
                 stride = 2 if (stage > 0 and b == 0) else 1
-                blocks.append(block(c_in, widths[stage + 1], stride))
+                blocks.append(block(c_in, widths[stage + 1], stride, group))
                 c_in = widths[stage + 1]
             setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
 
@@ -107,10 +108,10 @@ class ResNet(nn.Module):
 class ResNetEncoder(nn.Module):
     """NHWC [0, 1] images -> 5 NCHW features (strides 2/4/8/16/32)."""
 
-    def __init__(self, num_layers: int = 50):
+    def __init__(self, num_layers: int = 50, group=None):
         super().__init__()
         self.num_ch_enc = encoder_channels(num_layers)
-        self.encoder = ResNet(num_layers)
+        self.encoder = ResNet(num_layers, group)
         # float64, rounded to the input's dtype at use: a float64 model gets
         # the constants unrounded
         self.register_buffer("mean", torch.tensor(IMAGENET_MEAN, dtype=torch.float64

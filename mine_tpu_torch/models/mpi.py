@@ -24,18 +24,25 @@ class MPINetwork(nn.Module):
 
     `remat` (model.remat_decoder) recomputes activations in the backward: the
     encoder as one checkpointed region, the decoder stage by stage (see
-    decoder.py). `sigma_keep`: the decoder's sigma dropout masks."""
+    decoder.py). `sigma_keep`: the decoder's sigma dropout masks.
+
+    On a mesh (parallel/data_parallel.py model_groups) the train-mode
+    BatchNorm statistics sync over process groups: the encoder's and the
+    decoder extension's over `batch_group`, the decoder up-stages' over
+    `stage_group`. The state dict does not change."""
 
     def __init__(self, num_layers: int = 50, multires: int = 10, use_alpha: bool = False,
                  scales: tuple[int, ...] = (0, 1, 2, 3), decoder_width_multiple: int = 1,
-                 sigma_dropout_rate: float = 0.0, remat: bool = False):
+                 sigma_dropout_rate: float = 0.0, remat: bool = False,
+                 batch_group=None, stage_group=None):
         super().__init__()
         self.remat = remat
-        self.backbone = ResNetEncoder(num_layers)
+        self.backbone = ResNetEncoder(num_layers, batch_group)
         self.decoder = MPIDecoder(
             self.backbone.num_ch_enc, multires=multires, use_alpha=use_alpha,
             scales=scales, width_multiple=decoder_width_multiple,
-            sigma_dropout_rate=sigma_dropout_rate,
+            sigma_dropout_rate=sigma_dropout_rate, batch_group=batch_group,
+            stage_group=stage_group,
         )
 
     def forward(self, src_imgs: torch.Tensor, disparity: torch.Tensor,

@@ -1,4 +1,4 @@
-"""Cross-process trace collection, the fleet half (the port's own copy of
+"""Cross-process trace collection (the port's own copy of
 mine_tpu/obs/collect.py): N span rings -> one timeline.
 
 Every replica and the fleet router keep their own span ring (obs/trace.py)
@@ -15,15 +15,20 @@ across the wire:
                        parent_span args the trace context carries;
   collect_fleet_trace  all of it in one call: the router's aggregated
                        GET /debug/trace?request_id= and the fleet CLI's
-                       `trace` subcommand.
+                       `trace` subcommand;
+  training_timeline    a multi-process training run's per-process host-span
+                       exports merged, with each process's step and sync
+                       distributions and the heartbeats' straggler table.
 
 The one per-request matching rule is obs/trace.py's filter_doc_to_request.
-The training half (training_timeline) is not ported.
 """
 
 from __future__ import annotations
 
+import glob
 import json
+import os
+import re
 import time
 import urllib.parse
 import urllib.request
@@ -282,3 +287,75 @@ def collect_fleet_trace(
             k: v for k, v in request_tree(doc, request_id).items() if k != "events"
         }
     return doc
+
+
+# -- multi-process training timeline -------------------------------------------
+
+_HOST_SPANS_RE = re.compile(r"host_spans(?:_p(\d+))?\.trace\.json$")
+
+
+def _span_stats(durs_us: list[float]) -> dict:
+    if not durs_us:
+        return {"count": 0}
+    durs = sorted(durs_us)
+    n = len(durs)
+    return {
+        "count": n,
+        "mean_ms": round(sum(durs) / n / 1e3, 3),
+        "p50_ms": round(durs[n // 2] / 1e3, 3),
+        "p95_ms": round(durs[min(n - 1, int(0.95 * (n - 1)))] / 1e3, 3),
+        "max_ms": round(durs[-1] / 1e3, 3),
+    }
+
+
+def training_timeline(sidecar_dir: str) -> dict:
+    """Merge a (possibly multi-process) training run's host-span exports
+    and heartbeats into one timeline and attribution block.
+
+    Returns {"doc": the merged Chrome trace, "per_host": {idx: {"step": ...,
+    "sync_wait": ...}} (distributions of each process's step and sync
+    spans), "stragglers": the heartbeats' straggler table
+    (resilience/multihost.py) when the workspace has heartbeats}, or raises
+    FileNotFoundError when it holds no host-span export. A multi-process
+    run writes host_spans_p<idx>.trace.json; a bare host_spans.trace.json
+    beside them is an earlier one-process run's and is left out."""
+    paths = sorted(glob.glob(os.path.join(sidecar_dir, "profile", "host_spans*.trace.json")))
+    matches = {p: _HOST_SPANS_RE.search(os.path.basename(p)) for p in paths}
+    if any(m and m.group(1) for m in matches.values()):
+        paths = [p for p in paths if matches[p] and matches[p].group(1)]
+    members: list[dict] = []
+    per_host: dict[int, dict] = {}
+    for path in paths:
+        match = matches[path]
+        if not match:
+            continue
+        idx = int(match.group(1) or 0)
+        try:
+            with open(path) as fh:
+                doc = json.load(fh)
+        except (OSError, ValueError):
+            continue
+        members.append({"name": f"p{idx}", "doc": doc, "skew_s": 0.0})
+        steps: list[float] = []
+        syncs: list[float] = []
+        for ev in doc.get("traceEvents", ()):
+            if ev.get("ph") != "X" or ev.get("cat") != "train":
+                continue
+            if ev.get("name") == "step":
+                steps.append(float(ev.get("dur", 0.0)))
+            elif ev.get("name") == "sync":
+                syncs.append(float(ev.get("dur", 0.0)))
+        per_host[idx] = {"step": _span_stats(steps), "sync_wait": _span_stats(syncs)}
+    if not members:
+        raise FileNotFoundError(
+            f"no host_spans*.trace.json under {sidecar_dir}/profile "
+            "(obs.enabled runs export them; multi-process runs one per "
+            "process)"
+        )
+    out = {"doc": merge_member_traces(members), "per_host": per_host}
+    hb_dir = os.path.join(sidecar_dir, "heartbeats")
+    if os.path.isdir(hb_dir):
+        from mine_tpu_torch.resilience.multihost import straggler_table
+
+        out["stragglers"] = straggler_table(hb_dir)
+    return out

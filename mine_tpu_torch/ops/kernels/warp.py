@@ -49,7 +49,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "warp": {"mine_warp_bilinear_f32": [_P] * 4 + [_I] * 6 + [_P]},
     "warp_grad": {"mine_warp_bilinear_grad_f32": [_P] * 7 + [_I] * 6 + [_P, _P]},
-    "warp_composite": {"mine_warp_composite_f32": [_P] * 6 + [_I] * 4 + [_P]},
+    "warp_composite": {"mine_warp_composite_f32": [_P] * 6 + [_I] * 5 + [_P]},
 }
 BG_DIST = 1.0e3  # pseudo-distance behind the farthest plane (kBgDist in the kernel)
 
@@ -189,18 +189,21 @@ def warp_composite_plain(src: torch.Tensor, coords_x: torch.Tensor,
 
 
 def composite_operands(h_src_tgt: torch.Tensor, xyz_m: torch.Tensor,
-                       xyz_t: torch.Tensor, h: int, w: int):
+                       xyz_t: torch.Tensor, h: int, w: int, planes: int | None = None):
     """The per-plane coordinates that warp_composite's kernel computes, in
     torch and in the kernel's order of operations (that of the torch prep,
     mpi_render._plane_coords): returns coords_x, coords_y, dist and
-    target-frame z, each (N, S, h, w), for an (h, w) target grid.
+    target-frame z, each (N, planes, h, w), for an (h, w) target grid.
 
     h_src_tgt (N, S, 3, 3) maps target pixels [x, y, 1] to homogeneous
     source points, |z| < 1e-8 pushed to +-1e-8 before the divide; the plane's
     target-frame point is xyz_m (N, S, 3, 3) [x, y, 1] + xyz_t (N, 3) at the
     clamped sample; dist is the distance to the next plane's point, BG_DIST
-    for the last plane."""
+    for the last plane. `planes` (default S) is the payload's plane count:
+    S - 1 when the matrices end with a halo plane, to which the last
+    payload plane's distance then runs."""
     n, s = h_src_tgt.shape[:2]
+    planes = s if planes is None else planes
     grid = homogeneous_pixel_grid(h, w, h_src_tgt.device)
     homo = apply_3x3(h_src_tgt.reshape(n * s, 3, 3), grid[..., 0], grid[..., 1])
     hz = homo[..., 2]
@@ -210,8 +213,10 @@ def composite_operands(h_src_tgt: torch.Tensor, xyz_m: torch.Tensor,
     xyz = (xyz + xyz_t.repeat_interleave(s, dim=0)[:, None, None]).reshape(n, s, h, w, 3)
     d = xyz[:, 1:] - xyz[:, :-1]
     dist = torch.sqrt(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2])
-    dist = torch.cat([dist, torch.full_like(xyz[:, -1:, ..., 2], BG_DIST)], dim=1)
-    return x.reshape(n, s, h, w), y.reshape(n, s, h, w), dist, xyz[..., 2]
+    if planes == s:
+        dist = torch.cat([dist, torch.full_like(xyz[:, -1:, ..., 2], BG_DIST)], dim=1)
+    return (x.reshape(n, s, h, w)[:, :planes], y.reshape(n, s, h, w)[:, :planes],
+            dist[:, :planes], xyz[:, :planes, ..., 2])
 
 
 def warp_composite_matrix_plain(mpi_rgb: torch.Tensor, mpi_sigma: torch.Tensor,
@@ -222,7 +227,8 @@ def warp_composite_matrix_plain(mpi_rgb: torch.Tensor, mpi_sigma: torch.Tensor,
     channel-major payload. Same arguments and result as warp_composite."""
     h, w = mpi_rgb.shape[2:4]
     payload = torch.cat([mpi_rgb, mpi_sigma], dim=-1).permute(0, 1, 4, 2, 3)
-    return warp_composite_plain(payload, *composite_operands(h_src_tgt, xyz_m, xyz_t, h, w))
+    return warp_composite_plain(payload, *composite_operands(h_src_tgt, xyz_m, xyz_t, h, w,
+                                                             mpi_rgb.shape[1]))
 
 
 # -- wrappers ------------------------------------------------------------------
@@ -371,19 +377,23 @@ def warp_composite(mpi_rgb: torch.Tensor, mpi_sigma: torch.Tensor,
     nothing copies them). h_src_tgt (N, S, 3, 3): each plane's target pixel
     -> source pixel homography; xyz_m (N, S, 3, 3) and xyz_t (N, 3): the
     plane's target-frame point xyz_m [x, y, 1] + xyz_t at the clamped source
-    sample (x, y) (see composite_operands). Returns (N, 7, H, W): 3
+    sample (x, y) (see composite_operands). h_src_tgt and xyz_m may hold
+    S + 1 planes: the last is a halo plane (the next plane shard's first),
+    whose point the S-th plane's distance runs to instead of the
+    background's (mpi_render.streaming_matrices). Returns (N, 7, H, W): 3
     rgb-weighted sums, z sum, weight sum, in-FoV plane count, final
     transmittance. CUDA tensors launch csrc/warp_composite.cu; CPU tensors
     take warp_composite_matrix_plain.
     """
     n, s = mpi_rgb.shape[:2] if mpi_rgb.dim() == 5 else (None, None)
+    sm = h_src_tgt.shape[1] if h_src_tgt.dim() == 4 else None
     if mpi_rgb.dim() != 5 or mpi_rgb.shape[-1] != 3 \
-            or mpi_sigma.shape != mpi_rgb.shape[:-1] + (1,) \
-            or h_src_tgt.shape != (n, s, 3, 3) or xyz_m.shape != (n, s, 3, 3) \
+            or mpi_sigma.shape != mpi_rgb.shape[:-1] + (1,) or sm not in (s, s + 1) \
+            or h_src_tgt.shape != (n, sm, 3, 3) or xyz_m.shape != (n, sm, 3, 3) \
             or xyz_t.shape != (n, 3):
         raise ValueError(
             f"warp_composite: mpi_rgb (N,S,H,W,3), mpi_sigma (N,S,H,W,1), "
-            f"h_src_tgt and xyz_m (N,S,3,3), xyz_t (N,3), got "
+            f"h_src_tgt and xyz_m (N,S,3,3) or (N,S+1,3,3), xyz_t (N,3), got "
             f"{[tuple(t.shape) for t in (mpi_rgb, mpi_sigma, h_src_tgt, xyz_m, xyz_t)]}"
         )
     operands = (mpi_rgb, mpi_sigma, h_src_tgt, xyz_m, xyz_t)
@@ -405,7 +415,7 @@ def warp_composite(mpi_rgb: torch.Tensor, mpi_sigma: torch.Tensor,
     with torch.cuda.device(mpi_rgb.device):
         code = lib.mine_warp_composite_f32(
             *(t.data_ptr() for t in operands), out.data_ptr(),
-            n, s, h, w, torch.cuda.current_stream().cuda_stream,
+            n, s, sm, h, w, torch.cuda.current_stream().cuda_stream,
         )
     build.check(lib, code, "warp_composite")
     launches["warp_composite"] += 1

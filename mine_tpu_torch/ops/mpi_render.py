@@ -1,5 +1,5 @@
-"""MPI compositing (counterpart of mine_tpu/ops/mpi_render.py without the
-plane-sharded twins).
+"""MPI compositing (counterpart of mine_tpu/ops/mpi_render.py; the
+plane-sharded twins are in parallel/plane_sharding.py).
 
 Layout is channel-last (B, S, H, W, C) as in the JAX package; the plane axis
 S is axis 1 and every cumulative product runs over it.
@@ -256,14 +256,21 @@ def streaming_inputs(mpi_rgb_src, mpi_sigma_src, mpi_disparity_src, g_tgt_src,
 
 
 @scoped("homography_warp")
-def streaming_matrices(mpi_disparity_src, g_tgt_src, k_src_inv, k_tgt):
+def streaming_matrices(mpi_disparity_src, g_tgt_src, k_src_inv, k_tgt, halo_depth=None):
     """warp_composite's per-plane matrices for one target render, built as
     _plane_coords builds them: h_src_tgt (B, S, 3, 3), the inverse plane
     homographies; xyz_m (B, S, 3, 3) = G[:3, :3] K_src^-1 depth and xyz_t
     (B, 3) = G[:3, 3], the affine target-frame xyz of _affine_tgt_xyz.
-    Contiguous, at least fp32."""
+    With `halo_depth` (B,), the depth of the plane after the last (the next
+    plane shard's first), the matrices are of S + 1 planes: the kernel then
+    takes the last plane's distance to that halo plane's point instead of
+    the background's. Contiguous, at least fp32."""
     b, s = mpi_disparity_src.shape
-    depth = (1.0 / mpi_disparity_src).reshape(b * s)
+    depth = 1.0 / mpi_disparity_src
+    if halo_depth is not None:
+        depth = torch.cat([depth, halo_depth.to(depth.dtype)[:, None]], dim=1)
+        s += 1
+    depth = depth.reshape(b * s)
     g_flat = g_tgt_src.repeat_interleave(s, dim=0)
     k_inv_flat = k_src_inv.repeat_interleave(s, dim=0)
     h_src_tgt = inverse_3x3(build_plane_homography(
@@ -359,17 +366,24 @@ def _stream_chunk(rgb, sigma, disparity, next_depth, t_acc, g_tgt_src, k_src_inv
                 torch.sum(valid.to(rgb.dtype), dim=1), t_acc * trans_local[:, -1])
 
 
-def _chunk_args(mpi_rgb, mpi_sigma, disparity, chunk: int, k: int):
-    """(rgb, sigma, disparity, next_depth, is_last) of chunk k; the trailing
-    chunk's halo is its own last plane, whose slot holds the background."""
+def _chunk_args(mpi_rgb, mpi_sigma, disparity, chunk: int, k: int, halo_depth=None,
+                bg_on_last: bool = True):
+    """(rgb, sigma, disparity, next_depth, is_last) of chunk k. The trailing
+    chunk's next plane is `halo_depth` (B,) when given (the next plane
+    shard's first), else its own last plane; with bg_on_last (the MPI's
+    last plane lives here) that plane's slot holds the background."""
     n = mpi_rgb.shape[1] // chunk
     sl = slice(k * chunk, (k + 1) * chunk)
-    nxt = disparity[:, (k + 1) * chunk] if k < n - 1 else disparity[:, -1]
-    return mpi_rgb[:, sl], mpi_sigma[:, sl], disparity[:, sl], 1.0 / nxt, k == n - 1
+    if k < n - 1:
+        nxt, last = 1.0 / disparity[:, (k + 1) * chunk], False
+    else:
+        nxt = 1.0 / disparity[:, -1] if halo_depth is None else halo_depth
+        last = bg_on_last
+    return mpi_rgb[:, sl], mpi_sigma[:, sl], disparity[:, sl], nxt, last
 
 
-def _stream_sweep(mpi_rgb, mpi_sigma, disparity, g_tgt_src, k_src_inv, k_tgt,
-                  use_alpha: bool, chunk: int, n_chunks: int):
+def _stream_sweep(mpi_rgb, mpi_sigma, disparity, g_tgt_src, k_src_inv, k_tgt, halo_depth,
+                  use_alpha: bool, chunk: int, n_chunks: int, bg_on_last: bool = True):
     """The scan over the first n_chunks chunks: returns the (rgb, z, weight,
     mask) sums and the transmittance entering each chunk and leaving the
     last, n_chunks + 1 tensors of (B, H, W, 1)."""
@@ -377,7 +391,8 @@ def _stream_sweep(mpi_rgb, mpi_sigma, disparity, g_tgt_src, k_src_inv, k_tgt,
     sums = None
     trans = [mpi_rgb.new_ones((b, h, w, 1))]
     for k in range(n_chunks):
-        rgb, sigma, disp, nxt, last = _chunk_args(mpi_rgb, mpi_sigma, disparity, chunk, k)
+        rgb, sigma, disp, nxt, last = _chunk_args(mpi_rgb, mpi_sigma, disparity, chunk, k,
+                                                  halo_depth, bg_on_last)
         *parts, t_out = _stream_chunk(rgb, sigma, disp, nxt, trans[-1], g_tgt_src, k_src_inv,
                                       k_tgt, use_alpha, last)
         sums = parts if sums is None else [a + p for a, p in zip(sums, parts)]
@@ -387,7 +402,7 @@ def _stream_sweep(mpi_rgb, mpi_sigma, disparity, g_tgt_src, k_src_inv, k_tgt,
 
 class RenderTgtStreaming(torch.autograd.Function):
     """The streaming target render with a chunked-recompute backward (the
-    custom_vjp _render_tgt_fused of the JAX package).
+    custom_vjp _render_tgt_fused of the JAX package, over its _stream_scan).
 
     Forward: sigma MPIs run one warp_composite launch (K5), alpha MPIs the
     chunked scan, both with autograd off; only the inputs are saved. Backward:
@@ -397,68 +412,104 @@ class RenderTgtStreaming(torch.autograd.Function):
     recomputed with autograd on and back-propagated with the carried
     transmittance cotangent. Each chunk's warp is warp_bilinear: K1 forward,
     K2 backward, K2 without the coordinate cotangent unless a pose or
-    disparity needs a gradient. Working set O(chunk H W). Outputs: the rgb
-    (B, H, W, 3), z and weight (B, H, W, 1) sums and the in-FoV plane count
-    (B, H, W), not differentiable."""
+    disparity needs a gradient. Working set O(chunk H W).
+
+    `halo_depth` (B,) or None and `bg_on_last` are the JAX scan's: the depth
+    of the plane after the last, and whether the MPI's last plane (the
+    background's slot) is the last here. A plane shard but the last passes
+    the next shard's first depth and bg_on_last False; K5 then takes S + 1
+    planes' matrices. Outputs: the rgb (B, H, W, 3), z and weight
+    (B, H, W, 1) sums, the in-FoV plane count (B, H, W), not
+    differentiable, and the transmittance leaving the last plane
+    (B, H, W, 1), all with an initial transmittance of 1."""
 
     @staticmethod
-    def forward(ctx, mpi_rgb, mpi_sigma, disparity, g_tgt_src, k_src_inv, k_tgt,
-                use_alpha: bool, chunk: int):
-        ctx.save_for_backward(mpi_rgb, mpi_sigma, disparity, g_tgt_src, k_src_inv, k_tgt)
-        ctx.use_alpha, ctx.chunk = use_alpha, chunk
+    def forward(ctx, mpi_rgb, mpi_sigma, disparity, g_tgt_src, k_src_inv, k_tgt, halo_depth,
+                use_alpha: bool, chunk: int, bg_on_last: bool):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(mpi_rgb, mpi_sigma, disparity, g_tgt_src, k_src_inv, k_tgt,
+                              halo_depth)
+        ctx.use_alpha, ctx.chunk, ctx.bg_on_last = use_alpha, chunk, bg_on_last
         if use_alpha:
-            (rgb, z, wsum, mask), _ = _stream_sweep(
-                mpi_rgb, mpi_sigma, disparity, g_tgt_src, k_src_inv, k_tgt, True, chunk,
-                mpi_rgb.shape[1] // chunk)
+            (rgb, z, wsum, mask), trans = _stream_sweep(
+                mpi_rgb, mpi_sigma, disparity, g_tgt_src, k_src_inv, k_tgt, halo_depth, True,
+                chunk, mpi_rgb.shape[1] // chunk, bg_on_last)
+            t_total = trans[-1]
         else:
-            matrices = streaming_matrices(disparity, g_tgt_src, k_src_inv, k_tgt)
+            matrices = streaming_matrices(disparity, g_tgt_src, k_src_inv, k_tgt,
+                                          None if bg_on_last else halo_depth)
             with scope("composite"):
                 acc = warp_composite(mpi_rgb.contiguous(), mpi_sigma.contiguous(),
                                      *matrices).permute(0, 2, 3, 1)
             rgb, z, wsum, mask = acc[..., 0:3], acc[..., 3:4], acc[..., 4:5], acc[..., 5]
+            t_total = acc[..., 6:7]
         ctx.mark_non_differentiable(mask)
-        return rgb, z, wsum, mask
+        return rgb, z, wsum, mask, t_total
 
     @staticmethod
     @once_differentiable
-    def backward(ctx, g_rgb, g_z, g_w, _g_mask):
+    def backward(ctx, g_rgb, g_z, g_w, _g_mask, g_trans):
         inputs = ctx.saved_tensors
         mpi_rgb, mpi_sigma = inputs[:2]
         chunk, n = ctx.chunk, mpi_rgb.shape[1] // ctx.chunk
-        _, trans = _stream_sweep(*inputs, ctx.use_alpha, chunk, n - 1)
-        need_rgb, need_sigma, *need_small = ctx.needs_input_grad[:6]
-        # the (B, S) and per-batch operands are leaves whose gradient sums
-        # over the chunks; rgb and sigma are cut into per-chunk leaves
-        small = [x.detach().requires_grad_(nd) for x, nd in zip(inputs[2:], need_small)]
-        grad_rgb = torch.empty_like(mpi_rgb) if need_rgb else None
-        grad_sigma = torch.empty_like(mpi_sigma) if need_sigma else None
-        grad_small = [None] * 4
-        g_t = None
+        _, trans = _stream_sweep(*inputs, ctx.use_alpha, chunk, n - 1, ctx.bg_on_last)
+        need_rgb, need_sigma, *need_small = ctx.needs_input_grad[:7]
+        # the (B, S), per-batch and halo operands are leaves whose gradient
+        # sums over the chunks; rgb and sigma are cut into per-chunk leaves
+        small = [None if x is None else x.detach().requires_grad_(nd)
+                 for x, nd in zip(inputs[2:], need_small)]
+        grad_rgb = torch.zeros_like(mpi_rgb) if need_rgb else None
+        grad_sigma = torch.zeros_like(mpi_sigma) if need_sigma else None
+        grad_small = [None] * 5
+        g_t = g_trans
         for k in reversed(range(n)):
             t_in = trans[k].detach().requires_grad_(k > 0)
             with torch.enable_grad():
-                rgb, sigma, disp, nxt, last = _chunk_args(mpi_rgb, mpi_sigma, small[0], chunk, k)
+                rgb, sigma, disp, nxt, last = _chunk_args(mpi_rgb, mpi_sigma, small[0], chunk, k,
+                                                          small[4], ctx.bg_on_last)
                 rgb = rgb.detach().requires_grad_(need_rgb)
                 sigma = sigma.detach().requires_grad_(need_sigma)
-                *sums, _, t_out = _stream_chunk(rgb, sigma, disp, nxt, t_in, *small[1:],
+                *sums, _, t_out = _stream_chunk(rgb, sigma, disp, nxt, t_in, *small[1:4],
                                                 ctx.use_alpha, last)
             outs = list(zip(sums + [t_out], [g_rgb, g_z, g_w, g_t]))
             outs = [(o, c) for o, c in outs if c is not None and o.requires_grad]
-            wrt = [x for x in (rgb, sigma, *small, t_in) if x.requires_grad]
-            got = iter(torch.autograd.grad([o for o, _ in outs], wrt, [c for _, c in outs],
-                                           allow_unused=True))
+            wrt = [x for x in (rgb, sigma, *small, t_in) if x is not None and x.requires_grad]
+            if outs and wrt:
+                got = iter(torch.autograd.grad([o for o, _ in outs], wrt,
+                                               [c for _, c in outs], allow_unused=True))
+            else:
+                got = iter([None] * len(wrt))
             sl = slice(k * chunk, (k + 1) * chunk)
             for leaf, dest in ((rgb, grad_rgb), (sigma, grad_sigma)):
                 if leaf.requires_grad:
                     g = next(got)
-                    dest[:, sl] = 0.0 if g is None else g
+                    if g is not None:
+                        dest[:, sl] = g
             for i, leaf in enumerate(small):
-                if leaf.requires_grad:
+                if leaf is not None and leaf.requires_grad:
                     g = next(got)
                     if g is not None:
                         grad_small[i] = g if grad_small[i] is None else grad_small[i] + g
             g_t = next(got) if t_in.requires_grad else None
-        return (grad_rgb, grad_sigma, *grad_small, None, None)
+        return (grad_rgb, grad_sigma, *grad_small, None, None, None)
+
+
+def stream_scan(mpi_rgb_src, mpi_sigma_src, mpi_disparity_src, g_tgt_src, k_src_inv, k_tgt,
+                halo_depth=None, bg_on_last: bool = True, use_alpha: bool = False,
+                chunk_planes: int = DEFAULT_STREAM_CHUNK):
+    """The streaming composite of these planes with an initial transmittance
+    of 1 (the JAX package's _stream_scan): (rgb_sum, z_sum, weight_sum,
+    mask_sum, trans_total), every sum linear in the incoming transmittance,
+    which is how a plane shard's partials compose with the transmittance of
+    the shards before it (parallel/plane_sharding.py). Differentiable in the
+    MPI, the poses, the disparities and the halo through RenderTgtStreaming."""
+    chunk = _chunk_size(mpi_rgb_src.shape[1], chunk_planes)
+    # the backward's ops outside the chunk scopes (its sweep's glue, the
+    # gradient slabs) take this forward op's scope
+    with scope("composite"):
+        return RenderTgtStreaming.apply(mpi_rgb_src, mpi_sigma_src, mpi_disparity_src, g_tgt_src,
+                                        k_src_inv, k_tgt, halo_depth, use_alpha, chunk,
+                                        bg_on_last)
 
 
 def render_tgt_rgb_depth_streaming(mpi_rgb_src, mpi_sigma_src, mpi_disparity_src,
@@ -474,11 +525,8 @@ def render_tgt_rgb_depth_streaming(mpi_rgb_src, mpi_sigma_src, mpi_disparity_src
     divisor of S)."""
     operands = (mpi_rgb_src, mpi_sigma_src, mpi_disparity_src, g_tgt_src, k_src_inv, k_tgt)
     if use_alpha or (torch.is_grad_enabled() and any(t.requires_grad for t in operands)):
-        chunk = _chunk_size(mpi_rgb_src.shape[1], chunk_planes)
-        # the backward's ops outside the chunk scopes (its sweep's glue, the
-        # gradient slabs) take this forward op's scope
-        with scope("composite"):
-            rgb, z, wsum, mask = RenderTgtStreaming.apply(*operands, use_alpha, chunk)
+        rgb, z, wsum, mask, _ = stream_scan(*operands, use_alpha=use_alpha,
+                                            chunk_planes=chunk_planes)
     else:
         matrices = streaming_matrices(mpi_disparity_src, g_tgt_src, k_src_inv, k_tgt)
         with scope("composite"):

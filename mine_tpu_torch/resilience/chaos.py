@@ -47,9 +47,16 @@ Kinds and their seams:
   drain_timeout@scale=N  serving/autoscale.py raises in the Nth drain's
                        handoff (the drain still completes).
 
-The JAX package's multi-host kinds (`host_kill`, `host_stall`,
-`coord_down`) have no seam here yet: a spec naming one is a parse error that
-names ROADMAP queue 1 item 6.
+  host_kill@step=N     training/loop.py SIGKILLs its own process after step
+                       N: a host dying, with no dump and no save; the
+                       survivors' watchdogs must name it
+                       (resilience/multihost.py).
+  host_stall@step=N    training/loop.py wedges this process after step N
+                       (a hung collective): every process's watchdog, its
+                       own too, must abort within the heartbeat window.
+  coord_down@init=N    resilience/multihost.py bring_up raises on its Nth
+                       attempt (a coordinator not up yet): the backoff
+                       retries it.
 
 Two trigger styles share one `should()` call: value-keyed kinds (counter
 `step`) fire when the caller's `at=` equals the trigger; invocation-keyed
@@ -79,13 +86,13 @@ KINDS: dict[str, str] = {
     "corrupt_ckpt": "swap",
     "replica_kill": "request",
     "overload_spike": "request",
+    "host_kill": "step",
+    "host_stall": "step",
+    "coord_down": "init",
     "join_stall": "scale",
     "drain_timeout": "scale",
 }
 _VALUE_KEYED = frozenset(k for k, c in KINDS.items() if c == "step")
-# the JAX package's multi-host kinds: a spec naming one is refused, never a
-# silently dead fault, until the port has their seams
-MULTIHOST_KINDS = frozenset({"host_kill", "host_stall", "coord_down"})
 
 
 class ChaosFault(RuntimeError):
@@ -133,11 +140,6 @@ class ChaosSchedule:
                 raise ValueError(
                     f"bad {ENV_VAR} fault {part!r}: expected kind@counter=int"
                 ) from None
-            if kind in MULTIHOST_KINDS:
-                raise ValueError(
-                    f"{ENV_VAR} fault kind {kind!r} has no seam in the port: "
-                    "multi-host training waits for ROADMAP queue 1 item 6"
-                )
             if kind not in KINDS:
                 raise ValueError(
                     f"unknown {ENV_VAR} fault kind {kind!r} "

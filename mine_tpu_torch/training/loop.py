@@ -1,5 +1,5 @@
-"""The training loop (counterpart of mine_tpu/training/loop.py on one
-device): epochs of train steps, the MultiStep schedule stepped per update,
+"""The training loop (counterpart of mine_tpu/training/loop.py): epochs of
+train steps, the MultiStep schedule stepped per update,
 the loss dict logged every `training.log_interval` steps, checkpoints every
 `training.checkpoint_interval` steps and at the end (each marked last-good
 once the sentinel has vetted it), eval over the val set every
@@ -26,8 +26,18 @@ Resilience: the preemption guard (resilience/preempt.py) saves the last
 completed step on SIGTERM/SIGUSR2 (`resilience.preempt_save`), deferring a
 signal that lands inside a step or a checkpoint write to its end; the chaos
 seams `nan_loss`, `sigterm`, `sigusr2`, `preempt_exit` and (through the
-pipeline) `loader_raise` fire here (resilience/chaos.py). The multi-host
-layers wait for ROADMAP queue 1 item 6.
+pipeline) `loader_raise` fire here (resilience/chaos.py).
+
+On a mesh (a torch.distributed job, parallel/): one rank per device, each
+with its rows of the global batch (per_gpu_batch_size x the batch replicas)
+from a loader built with `host_slice`, its planes under plane sharding, and
+the step's collectives (parallel/data_parallel.py). Rank 0's weights are
+broadcast at the start; every rank restores the same checkpoint; only rank
+0 writes checkpoints, params.yaml, train.log, metrics.jsonl and the jsonl
+logs. Multi-process survival (resilience/multihost.py): each rank beats a
+heartbeat file at its log intervals, a watchdog turns a dead or wedged peer
+into a named abort (exit code 83), and the `host_kill`/`host_stall` chaos
+seams fire after a step.
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ import json
 import logging
 import os
 import signal
+import sys
 import time
 from contextlib import nullcontext
 from itertools import islice
@@ -54,7 +65,17 @@ from mine_tpu_torch.obs.flight import FlightRecorder
 from mine_tpu_torch.obs.ledger import set_build_info
 from mine_tpu_torch.obs.memlog import MemLog
 from mine_tpu_torch.obs.trace import Tracer
-from mine_tpu_torch.resilience import chaos
+from mine_tpu_torch.parallel.data_parallel import broadcast_state, make_plan, model_groups
+from mine_tpu_torch.parallel.mesh import (
+    data_replica_count,
+    host_batch_slice,
+    make_mesh,
+    mesh_shape_str,
+    process_count,
+    process_index,
+    rank_device,
+)
+from mine_tpu_torch.resilience import chaos, multihost
 from mine_tpu_torch.resilience.chaos import PreemptedError
 from mine_tpu_torch.resilience.preempt import PreemptionGuard
 from mine_tpu_torch.resilience.sentinel import SentinelAbort, SentinelRollback, TrainingSentinel
@@ -134,14 +155,16 @@ def _to_host(values: Mapping[str, torch.Tensor]) -> dict[str, float]:
 
 def run_evaluation(cfg: Config, model: torch.nn.Module, val_ds: Any,
                    device: torch.device, lpips_params: dict | None = None,
-                   global_step: int = 0) -> dict[str, float]:
+                   global_step: int = 0, plan=None) -> dict[str, float]:
     """The metric pass over the whole val set (epoch 0), shared by the
     train loop and `python -m mine_tpu_torch.evaluate`: every LOSS_KEYS
     value averaged over the genuine examples (each batch weighted by its
     eval_examples), plus "eval_examples", their count, which must equal the
     dataset's num_eval_examples when it declares one. Disparities come from
     a generator seeded training.seed + 17. Batches are staged as in training
-    (staged_batches, data.num_workers ahead, no retries)."""
+    (staged_batches, data.num_workers ahead, no retries). With a `plan`
+    val_ds holds this rank's rows, and the count and the means are the whole
+    mesh's (eval_step)."""
     meters = {k: AverageMeter(k) for k in LOSS_KEYS}
     generator = torch.Generator().manual_seed(cfg.training.seed + 17)
     n_examples = 0
@@ -149,7 +172,7 @@ def run_evaluation(cfg: Config, model: torch.nn.Module, val_ds: Any,
     try:
         for batch in batches:
             loss_dict, _ = eval_step(cfg, model, batch_to_device(batch, device), generator,
-                                     lpips_params)
+                                     lpips_params, plan=plan)
             host = _to_host({k: loss_dict[k] for k in LOSS_KEYS + ("eval_examples",)})
             n_batch = int(round(host.pop("eval_examples")))
             n_examples += n_batch
@@ -174,8 +197,7 @@ def run_evaluation(cfg: Config, model: torch.nn.Module, val_ds: Any,
 class TrainObsMetrics:
     """Training's live gauge set on a utils/metrics.py registry (the JAX
     package's `mine_train_*` names), the queryable twin of the
-    MetricWriter scalars. The JAX set's per-host data-bytes counter waits
-    for multi-host training (ROADMAP queue 1 item 6)."""
+    MetricWriter scalars."""
 
     def __init__(self):
         self.registry = MetricsRegistry()
@@ -202,6 +224,11 @@ class TrainObsMetrics:
             "mine_train_data_retries_total",
             "host batches retried after transient loader/staging errors "
             "(data.loader_retries; labeled by process_index)")
+        self.data_host_bytes = r.counter(
+            "mine_train_data_host_bytes_total",
+            "bytes of batch data this process's loader materialized (labeled "
+            "by process_index). Under per-host data sharding each of N "
+            "processes counts ~1/N of the global batch bytes")
         self.accum_steps = r.gauge(
             "mine_train_accum_steps", "micro-batches accumulated per optimizer update")
         self.effective_batch = r.gauge(
@@ -225,7 +252,8 @@ class TrainObsMetrics:
 
 
 class Trainer:
-    """One model, its optimizer, schedule and generators on one device.
+    """One model, its optimizer, schedule and generators on one device; on
+    a mesh, one rank of it (the module docstring).
 
     Weights are `state_dict` when given, else seeded random weights
     (training.seed); a workspace checkpoint or an .npz warm start replaces
@@ -236,6 +264,10 @@ class Trainer:
     fit() (the CLI's --profile-steps); otherwise obs.profile_steps traces a
     window starting obs.profile_start_offset steps in. Either needs a
     workspace, as do the flight recorder and the metric stream.
+
+    A torch.distributed job (parallel/mesh.py init_distributed, before the
+    Trainer) trains on the mesh cfg.mesh describes over its ranks; the
+    rank's device is `device`, else cuda:{LOCAL_RANK}.
     """
 
     def __init__(self, cfg: Config, workspace: str | None = None,
@@ -253,13 +285,26 @@ class Trainer:
             )
         self.cfg = cfg
         self.workspace = workspace
+        self.mesh = make_mesh(cfg.mesh.data_parallel, cfg.mesh.plane_parallel,
+                              cfg.mesh.fsdp_parallel)
+        # the step's collectives: none without a process group
+        self.plan = make_plan(cfg, self.mesh) if self.mesh.device_mesh is not None else None
+        self.rank = process_index()
+        self.is_main = self.rank == 0
+        if device is None and self.plan is not None:
+            device = rank_device()
         self.device = resolve_device(device)
         obs = cfg.obs
         self.tracer = Tracer(enabled=obs.enabled, max_spans=obs.trace_buffer_spans)
         self.obs_metrics = TrainObsMetrics()
         set_build_info(self.obs_metrics.registry, backend=self.device.type)
         self.obs_metrics.accum_steps.set(accum)
-        self.obs_metrics.effective_batch.set(cfg.data.per_gpu_batch_size)
+        # batches shard their rows over the batch replicas (parallel/mesh.py)
+        self.global_batch = cfg.data.per_gpu_batch_size * data_replica_count(self.mesh)
+        # the rows this rank's loader builds; None: the whole batch
+        self.host_slice = (host_batch_slice(self.mesh, self.global_batch)
+                           if data_replica_count(self.mesh) > 1 else None)
+        self.obs_metrics.effective_batch.set(self.global_batch)
         # device-memory telemetry rides the obs switch, like the tracer
         self.memlog = MemLog(tracer=self.tracer, live_gauge=self.obs_metrics.hbm_live_bytes,
                              peak_gauge=self.obs_metrics.hbm_peak_bytes, device=self.device)
@@ -272,8 +317,13 @@ class Trainer:
                 get_status=self._flight_status,
             )
         self.sentinel = TrainingSentinel(cfg.resilience, logger, flight=self.flight)
-        # (steps after the start, steps): the torch.profiler window
-        if not workspace:
+        # heartbeats and the cross-host watchdog (None on one process)
+        self.multihost = multihost.MultihostSurvival.maybe_create(
+            cfg, workspace, flight=self.flight, logger=logger) if workspace else None
+        self._host_bytes = 0  # batch bytes this process's loader materialized
+        self._last_sync_wait_ms: float | None = None
+        # (steps after the start, steps): the torch.profiler window; rank 0's
+        if not workspace or not self.is_main:
             self.profile_window = (0, 0)
         elif profile_steps:
             self.profile_window = (0, profile_steps)
@@ -284,7 +334,7 @@ class Trainer:
         self.peak_flops = resolve_peak_flops(self.device, obs.peak_flops_override)
         self.writer: MetricWriter | None = None
         self._guard: PreemptionGuard | None = None
-        model = build_model(cfg)
+        model = build_model(cfg, **model_groups(self.mesh))
         if state_dict is None:
             init_weights(model, torch.Generator().manual_seed(cfg.training.seed))
         else:
@@ -298,7 +348,7 @@ class Trainer:
         self.lpips_params = load_lpips_params(cfg.training.lpips_weights_path, self.device)
         # (global_step, result) of every eval this trainer ran
         self.evals: list[tuple[int, dict[str, float]]] = []
-        if workspace:
+        if workspace and self.is_main:
             ckpt.save_paired_config(cfg, workspace)
 
     # -- state ----------------------------------------------------------------
@@ -323,9 +373,16 @@ class Trainer:
         self.dropout_generator.set_state(state["generators"]["dropout"])
 
     def save_checkpoint(self) -> None:
+        """Rank 0 writes; the other ranks hold the same state."""
+        if not self.is_main:
+            return
         cfg = self.cfg.training
         ckpt.save(self.workspace, self.state(), self.global_step,
                   keep_period=max(cfg.eval_interval // cfg.checkpoint_interval, 1))
+
+    def _mark_last_good(self, step: int) -> None:
+        if self.is_main:
+            ckpt.mark_last_good(self.workspace, step)
 
     def _warm_start(self, path: str, subtrees: tuple[str, ...]) -> None:
         """Load the subtrees of a converted .npz into the model (strict)."""
@@ -365,6 +422,8 @@ class Trainer:
                              tuple(cfg.training.pretrained_subtrees))
         elif cfg.model.imagenet_pretrained and cfg.model.pretrained_backbone_path:
             self._warm_start(cfg.model.pretrained_backbone_path, ("backbone",))
+        if self.plan is not None:
+            broadcast_state(self.model, self.mesh)
         return 0
 
     # -- steps ----------------------------------------------------------------
@@ -379,7 +438,7 @@ class Trainer:
         try:
             out = train_step(self.cfg, self.model, self.optimizer, self.scheduler,
                              batch_to_device(batch, self.device), self.generator,
-                             self.dropout_generator)
+                             self.dropout_generator, plan=self.plan)
         except BaseException:
             self.generator.set_state(states[0])
             self.dropout_generator.set_state(states[1])
@@ -392,11 +451,11 @@ class Trainer:
         mode after it."""
         try:
             result = run_evaluation(self.cfg, self.model, val_ds, self.device,
-                                    self.lpips_params, self.global_step)
+                                    self.lpips_params, self.global_step, plan=self.plan)
         finally:
             self.model.train()
         self.evals.append((self.global_step, result))
-        if self.workspace:
+        if self.workspace and self.is_main:
             with open(os.path.join(self.workspace, "eval_log.jsonl"), "a") as fh:
                 fh.write(json.dumps({"global_step": self.global_step, **result}) + "\n")
         if self.writer is not None:
@@ -416,14 +475,14 @@ class Trainer:
         disk already; the last-good pointer moves only when the sentinel
         vets the step (vet() never raises: a bad verdict waits for the next
         check())."""
-        if not self.workspace or self.optimizer is None:
+        if not self.workspace or self.optimizer is None or not self.is_main:
             return
         step = self.global_step
         logger.warning("preemption save (%s): persisting step %d", reason, step)
         if step not in ckpt.all_steps(self.workspace):
             self.save_checkpoint()
         if self.sentinel.vet(step):
-            ckpt.mark_last_good(self.workspace, step)
+            self._mark_last_good(step)
         else:
             logger.warning("preemption save: step %d saved but NOT marked last-good "
                            "(unvetted non-finite flags)", step)
@@ -441,8 +500,12 @@ class Trainer:
         to the torch.profiler traces."""
         if not self.workspace or not self.tracer.enabled or not len(self.tracer):
             return
+        # one file a process on a multi-process run (obs/collect.py
+        # training_timeline merges them)
+        name = (f"host_spans_p{self.rank}.trace.json" if process_count() > 1
+                else "host_spans.trace.json")
         try:
-            self.tracer.export(os.path.join(self.workspace, "profile", "host_spans.trace.json"),
+            self.tracer.export(os.path.join(self.workspace, "profile", name),
                                extra_events=self.memlog.counter_events())
         except OSError:
             logger.exception("host trace export failed")
@@ -550,18 +613,30 @@ class Trainer:
         dict as floats; eval results are in `self.evals`."""
         steps_per_epoch = len(train_ds)
         start = self._start(steps_per_epoch)
-        if self.workspace:
+        if self.workspace and self.is_main:
             make_logger(self.workspace)
             self.writer = MetricWriter(self.workspace)
+        if self.plan is not None:
+            logger.info("rank %d of mesh %s (data x fsdp x plane), global batch %d, rows %s, "
+                        "device %s", self.rank, mesh_shape_str(self.mesh), self.global_batch,
+                        self.host_slice, self.device)
         if self.flight is not None:
             self.flight.start()
+        if self.multihost is not None:
+            self.multihost.start()
         # after the flight recorder, so that its SIGTERM handler chains:
         # save -> flight dump -> re-delivered termination
         if self.cfg.resilience.preempt_save:
             self._guard = PreemptionGuard(self._preempt_save, logger=logger).install()
+        fit_ok = False
         try:
-            return self._fit_epochs(train_ds, val_ds, start, max_steps)
+            out = self._fit_epochs(train_ds, val_ds, start, max_steps)
+            fit_ok = True
+            return out
         except (KeyboardInterrupt, Exception):
+            if self.multihost is not None:
+                # what is left may wait on a dead peer: bound it first
+                self.multihost.arm_failsafe()
             if self.flight is not None:
                 self.flight.dump("train_exception")
             # persist the last completed step so that the next run resumes;
@@ -573,18 +648,28 @@ class Trainer:
                     self.save_checkpoint()
             except BaseException:  # noqa: BLE001 - incl. a second interrupt
                 logger.exception("emergency checkpoint failed")
+            if self.multihost is not None and self.multihost.peer_aborted():
+                # a collective whose peer took the named abort: exit under
+                # its verdict (exit code 83), not as a crash
+                self.multihost.abort_after_peer(sys.exc_info()[1])
             raise
         finally:
             if self._guard is not None:
                 self._guard.uninstall()
                 self._guard = None
+            if self.multihost is not None:
+                # done only on a clean end: a failing host's silence is what
+                # its peers' watchdogs must see
+                self.multihost.stop(done=fit_ok, step=self.global_step,
+                                    data_bytes=self._host_bytes,
+                                    sync_wait_ms=self._last_sync_wait_ms)
             if self.flight is not None:
                 self.flight.stop()
             self._export_host_trace()
             if self.writer is not None:
                 self.writer.close()
                 self.writer = None
-            if self.workspace:
+            if self.workspace and self.is_main:
                 make_logger(None)  # closes train.log
 
     def _fit_epochs(self, train_ds, val_ds, start: int, max_steps: int | None) -> dict:
@@ -609,6 +694,8 @@ class Trainer:
                 except FileNotFoundError as exc:
                     raise SentinelAbort(f"rollback impossible ({exc}); trip: {trip}") from trip
                 self.load_state(ckpt.load(self.workspace, start))
+                if self.plan is not None:
+                    broadcast_state(self.model, self.mesh)
                 logger.warning("sentinel rollback #%d (%s): restored last-good step %d",
                                rollbacks, trip, start)
                 self.sentinel.reset_after_rollback()
@@ -643,8 +730,9 @@ class Trainer:
                 # start skips the batches the run already trained on, on the
                 # host, before they enter the pipeline
                 epoch_iter, step_in_epoch = islice(epoch_iter, skip, None), skip
-            batches = staged_batches(epoch_iter, self.device, cfg.data.num_workers,
-                                     cfg.data.loader_retries, self._on_loader_retry)
+            batches = staged_batches(self._count_host_bytes(epoch_iter), self.device,
+                                     cfg.data.num_workers, cfg.data.loader_retries,
+                                     self._on_loader_retry)
             try:
                 while True:
                     with tracer.span("data", cat="train"):
@@ -684,6 +772,18 @@ class Trainer:
                             os.kill(os.getpid(), signal.SIGUSR2)
                         if chaos_sched.should("sigterm", at=self.global_step):
                             os.kill(os.getpid(), signal.SIGTERM)
+                        if chaos_sched.should("host_kill", at=self.global_step):
+                            # a host dying: no dump, no save; the survivors'
+                            # watchdogs are what this proves
+                            logger.warning("chaos: host_kill after step %d", self.global_step)
+                            os.kill(os.getpid(), signal.SIGKILL)
+                        if chaos_sched.should("host_stall", at=self.global_step):
+                            # a wedged host: alive, no progress; every
+                            # host's watchdog, this one's too, must abort
+                            logger.warning("chaos: host_stall after step %d, sleeping until "
+                                           "the watchdog aborts this process", self.global_step)
+                            while True:
+                                time.sleep(3600.0)
                     since_log += 1
                     if counted:
                         t_log, timed = time.perf_counter(), 0
@@ -699,19 +799,23 @@ class Trainer:
                         t_sync = time.perf_counter()
                         with tracer.span("sync", cat="train", step=self.global_step):
                             logged = _to_host(loss_dict)
-                        self.obs_metrics.sync_wait_ms.set(
-                            (time.perf_counter() - t_sync) * 1e3, process_index="0")
+                        sync_wait_ms = (time.perf_counter() - t_sync) * 1e3
+                        self._last_sync_wait_ms = sync_wait_ms
+                        self.obs_metrics.sync_wait_ms.set(sync_wait_ms,
+                                                          process_index=str(self.rank))
                         with tracer.span("log", cat="train", step=self.global_step):
                             for k in LOSS_KEYS:
                                 meters[k].update(logged[k], since_log)
                             interval = time.perf_counter() - t_log
-                            rate = timed * self.batch_size / interval if timed else None
+                            rate = timed * self.global_batch / interval if timed else None
                             self._log(epoch, step_in_epoch, steps_per_epoch, logged, rate)
                             if timed:
                                 self._publish_mfu(interval / timed)
                             if cfg.obs.enabled:
                                 self.memlog.sample(step=self.global_step)
                                 self._progress["hbm"] = self.memlog.last()
+                            if self.multihost is not None:
+                                self._beat(sync_wait_ms)
                         t_log, since_log, timed = time.perf_counter(), 0, 0
                         if tracer.enabled:
                             # after the log span closes, so that this
@@ -725,7 +829,7 @@ class Trainer:
                         with tracer.span("ckpt", cat="train", step=self.global_step), \
                                 self._deferring():
                             self.save_checkpoint()
-                            ckpt.mark_last_good(self.workspace, self.global_step)
+                            self._mark_last_good(self.global_step)
                         logger.info("checkpoint saved @ step %d", self.global_step)
                     if val_ds is not None and (self.global_step == FIRST_EVAL_STEP
                                                or self.global_step % tcfg.eval_interval == 0):
@@ -752,13 +856,50 @@ class Trainer:
             with tracer.span("ckpt", cat="train", step=self.global_step), self._deferring():
                 if self.global_step not in ckpt.all_steps(self.workspace):
                     self.save_checkpoint()
-                ckpt.mark_last_good(self.workspace, self.global_step)
+                self._mark_last_good(self.global_step)
         if self.writer is not None:
             self.writer.flush()
         return logged
 
+    def _beat(self, sync_wait_ms: float) -> None:
+        """The heartbeat, on the log interval's sync; rank 0 also reads the
+        straggler table and names a host two steps behind."""
+        self.multihost.beat(self.global_step, data_bytes=self._host_bytes,
+                            sync_wait_ms=sync_wait_ms)
+        if self.is_main:
+            table = self.multihost.stragglers()
+            if table["suspect"] is not None and any(r["behind_steps"] >= 2
+                                                    for r in table["rows"]):
+                logger.warning("straggler: host %s is %.0f%% behind; table %s",
+                               table["suspect"], 100.0 * table["skew_fraction"], table["rows"])
+
+    def _count_host_bytes(self, epoch_iter: Iterable[dict]) -> Iterator[dict]:
+        """The loader's batches, their bytes counted into
+        mine_train_data_host_bytes_total (labeled by process_index) and the
+        heartbeat's data_bytes. A delegating iterator, not a generator, so
+        that a source's retry_safe_iter contract survives (data/pipeline.py)."""
+        trainer, label = self, str(self.rank)
+
+        class _Counting:
+            retry_safe_iter = getattr(epoch_iter, "retry_safe_iter", False)
+
+            def __init__(self):
+                self._src = iter(epoch_iter)
+
+            def __iter__(self):
+                return self
+
+            def __next__(self):
+                batch = next(self._src)
+                n = sum(int(getattr(v, "nbytes", 0)) for v in batch.values())
+                trainer._host_bytes += n
+                trainer.obs_metrics.data_host_bytes.inc(n, process_index=label)
+                return batch
+
+        return _Counting()
+
     def _on_loader_retry(self, attempt: int, exc: BaseException) -> None:
-        self.obs_metrics.data_retries.inc(process_index="0")
+        self.obs_metrics.data_retries.inc(process_index=str(self.rank))
         logger.warning("loader retry %d after %s: %s", attempt, type(exc).__name__, exc)
 
     def _log(self, epoch: int, step_in_epoch: int, steps_per_epoch: int,
@@ -784,7 +925,7 @@ class Trainer:
                 self.writer.scalar("train/imgs_per_sec", imgs_per_sec, step)
             self.writer.scalar("train/backbone_lr", lrs["backbone"], step)
             self.writer.scalar("train/grad_norm", losses["grad_norm"], step)
-        if self.workspace:
+        if self.workspace and self.is_main:
             os.makedirs(self.workspace, exist_ok=True)
             with open(os.path.join(self.workspace, "train_log.jsonl"), "a") as fh:
                 fh.write(json.dumps({"epoch": epoch, "global_step": self.global_step,

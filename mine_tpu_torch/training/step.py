@@ -1,8 +1,10 @@
 """The training and eval steps: the network forward, the 4-scale loss graph,
 the backward and the optimizer update (counterpart of
-mine_tpu/training/step.py on one device): gradient accumulation over
-micro-batches, the sentinel's skip of a non-finite update, and the eval
-step's per-example metrics weighted by `eval_weight`.
+mine_tpu/training/step.py): gradient accumulation over micro-batches, the
+sentinel's skip of a non-finite update, and the eval step's per-example
+metrics weighted by `eval_weight`. With a `plan`
+(parallel/data_parallel.py) the same steps run as one rank of a mesh: its
+rows of the batch, its planes of the MPI, and the step's collectives.
 
 Batch contract (the JAX package's): src_img, tgt_img (B, H, W, 3) fp32 in
 [0, 1]; k_src, k_tgt (B, 3, 3); g_tgt_src (B, 4, 4) source-to-target rigid
@@ -37,8 +39,10 @@ from mine_tpu_torch.ops.sampling import (
 NO_DISP_SUPERVISION = ("flowers", "kitti_raw", "dtu")
 
 
-def build_model(cfg: Config) -> MPINetwork:
-    """The MPINetwork cfg describes, in eval mode, on the CPU.
+def build_model(cfg: Config, batch_group=None, stage_group=None) -> MPINetwork:
+    """The MPINetwork cfg describes, in eval mode, on the CPU; on a mesh its
+    BatchNorm statistics sync over the groups of
+    parallel/data_parallel.py model_groups.
 
     The decoder's receptive-field extension pools the /32 feature twice and
     upsamples twice, so the round trip restores H/32 only when H and W are
@@ -58,6 +62,8 @@ def build_model(cfg: Config) -> MPINetwork:
         decoder_width_multiple=cfg.model.decoder_width_multiple,
         sigma_dropout_rate=cfg.mpi.sigma_dropout_rate,
         remat=cfg.model.remat_decoder,
+        batch_group=batch_group,
+        stage_group=stage_group,
     ).eval()
 
 
@@ -117,15 +123,16 @@ def predict_mpis(cfg: Config, model: torch.nn.Module, img: torch.Tensor,
 
 def render_novel_view(cfg: Config, mpi_rgb, mpi_sigma, disparity, g_tgt_src,
                       k_src_inv, k_tgt, scale_factor: torch.Tensor | None = None,
-                      ) -> dict[str, torch.Tensor]:
-    """Warp + composite the source MPI into the target camera with the
-    compositor cfg.mpi.compositor names. `scale_factor` (B,) divides the pose
-    translation, detached: it calibrates the pose, it is not trained through
-    it."""
+                      compositor=None) -> dict[str, torch.Tensor]:
+    """Warp + composite the source MPI into the target camera with
+    `compositor`, by default the one cfg.mpi.compositor names. `scale_factor`
+    (B,) divides the pose translation, detached: it calibrates the pose, it
+    is not trained through it."""
+    compositor = compositor or compositor_from_config(cfg)
     if scale_factor is not None:
         g_tgt_src = g_tgt_src.clone()
         g_tgt_src[:, :3, 3] = g_tgt_src[:, :3, 3] / scale_factor.detach()[:, None]
-    rgb, depth, mask = compositor_from_config(cfg).render_tgt_rgb_depth(
+    rgb, depth, mask = compositor.render_tgt_rgb_depth(
         mpi_rgb, mpi_sigma, disparity, g_tgt_src, k_src_inv, k_tgt,
         use_alpha=cfg.mpi.use_alpha, is_bg_depth_inf=cfg.mpi.is_bg_depth_inf,
     )
@@ -142,15 +149,17 @@ def _project_points(k: torch.Tensor, pt3d: torch.Tensor) -> torch.Tensor:
 def loss_fcn_per_scale(cfg: Config, scale: int, batch: dict[str, torch.Tensor],
                        mpi: torch.Tensor, disparity: torch.Tensor,
                        scale_factor: torch.Tensor | None, is_val: bool = False,
-                       lpips_params: dict | None = None, per_example: bool = False):
+                       lpips_params: dict | None = None, per_example: bool = False,
+                       compositor=None):
     """One scale of the supervision graph. mpi (B, S, h, w, 4) at this
     scale's resolution. Returns (loss_dict, visualization, scale_factor):
     the scale factor is computed at the first scale from the sparse points
     and reused, with its gradient, at the others. With `per_example` every
     loss_dict entry is a (B,) vector of per-example means (every term
     decomposes exactly); LPIPS runs at scale 0 of an eval (`is_val`) with
-    weights, and is 0 otherwise."""
-    compositor = compositor_from_config(cfg)
+    weights, and is 0 otherwise. `compositor` defaults to the one
+    cfg.mpi.compositor names (a plane shard passes its sharded one)."""
+    compositor = compositor or compositor_from_config(cfg)
     stride = 2**scale
     # nearest downsample == strided slice: out[i] = in[i * 2^s]
     src_img = batch["src_img"][:, ::stride, ::stride]
@@ -196,7 +205,7 @@ def loss_fcn_per_scale(cfg: Config, scale: int, batch: dict[str, torch.Tensor],
         loss_disp_src = zero
 
     render = render_novel_view(cfg, mpi_rgb, mpi_sigma, disparity, batch["g_tgt_src"],
-                               k_src_inv, k_tgt, scale_factor=scale_factor)
+                               k_src_inv, k_tgt, scale_factor=scale_factor, compositor=compositor)
     tgt_syn = render["tgt_imgs_syn"]
     tgt_disparity_syn = render["tgt_disparity_syn"]
     tgt_mask = render["tgt_mask_syn"]
@@ -273,20 +282,32 @@ def loss_fcn(cfg: Config, model: MPINetwork, batch: dict[str, torch.Tensor],
              generator: torch.Generator | None = None,
              disparity: torch.Tensor | None = None,
              dropout_generator: torch.Generator | None = None, is_val: bool = False,
-             lpips_params: dict | None = None, per_example: bool = False):
+             lpips_params: dict | None = None, per_example: bool = False, plan=None):
     """The network forward (in the model's current mode; train mode updates
     the BatchNorm running statistics and applies sigma dropout with masks
     from `dropout_generator`) and the losses of every scale the model
     predicts, summed into the multi-scale total. Disparities are drawn with
     `generator` unless given. Returns (total, loss_dict, scale-0
     visualization); loss_dict["loss"] is the total, a (B,) vector like every
-    entry with `per_example`."""
+    entry with `per_example`.
+
+    With a `plan` the batch is this rank's rows: the disparities (drawn, or
+    given) and the dropout masks are the global (B_global, S) ones, of which
+    the rank takes its rows and planes, and the render goes through the
+    plan's compositor. The losses are this rank's rows' (replicated over
+    the plane ranks)."""
     src_img = batch["src_img"]
     b = src_img.shape[0]
     if disparity is None:
-        disparity = make_disparity_list(cfg, b, src_img.device, generator,
+        rows = b if plan is None else b * plan.n_batch
+        disparity = make_disparity_list(cfg, rows, src_img.device, generator,
                                         torch.promote_types(src_img.dtype, torch.float32))
     keep = sigma_keep_masks(cfg, model, disparity, dropout_generator)
+    compositor = None
+    if plan is not None:
+        disparity = plan.local(disparity)
+        keep = None if keep is None else plan.local(keep)
+        compositor = plan.compositor
     mpis = predict_mpis(cfg, model, src_img, disparity, keep)
     scales = sorted(mpis)
     if not scales or scales[0] != 0:
@@ -300,6 +321,7 @@ def loss_fcn(cfg: Config, model: MPINetwork, batch: dict[str, torch.Tensor],
             ld, viz, scale_factor = loss_fcn_per_scale(
                 cfg, scale, batch, mpis[scale], disparity, scale_factor,
                 is_val=is_val, lpips_params=lpips_params, per_example=per_example,
+                compositor=compositor,
             )
         loss_dicts.append(ld)
         vizs.append(viz)
@@ -336,7 +358,8 @@ class _BufferSnapshot:
 def train_step(cfg: Config, model: MPINetwork, optimizer: torch.optim.Optimizer,
                scheduler, batch: dict[str, torch.Tensor],
                generator: torch.Generator | None = None,
-               dropout_generator: torch.Generator | None = None) -> dict[str, torch.Tensor]:
+               dropout_generator: torch.Generator | None = None,
+               plan=None) -> dict[str, torch.Tensor]:
     """One update; returns the detached loss dict with "grad_norm" (the
     global gradient norm, before weight decay) and "update_skipped".
 
@@ -351,7 +374,16 @@ def train_step(cfg: Config, model: MPINetwork, optimizer: torch.optim.Optimizer,
     gradient norm (in any micro-batch) skips the update: parameters,
     optimizer and schedule state and BatchNorm statistics keep their values
     (update_skipped 1) while the generators have advanced. That check waits
-    for the card once a step."""
+    for the card once a step.
+
+    With a `plan` (one rank of a mesh): each micro-batch's scalar loss is
+    averaged over the batch replicas before the backward (an all-reduce
+    whose backward passes the local cotangent), the gradients are summed
+    over every rank once (after the accumulation), the logged loss dict is
+    averaged over the batch replicas, and the finite verdict is the whole
+    mesh's, so every rank keeps or skips the same update."""
+    from mine_tpu_torch.parallel.comm import all_reduce_, all_reduce_replicated
+
     model.train()
     k = max(int(cfg.training.accum_steps), 1)
     b = batch["src_img"].shape[0]
@@ -367,7 +399,9 @@ def train_step(cfg: Config, model: MPINetwork, optimizer: torch.optim.Optimizer,
         for i in range(k):
             micro = batch if k == 1 else {key: v[i * m:(i + 1) * m] for key, v in batch.items()}
             total, ld, _ = loss_fcn(cfg, model, micro, generator,
-                                    dropout_generator=dropout_generator)
+                                    dropout_generator=dropout_generator, plan=plan)
+            if plan is not None:
+                total = all_reduce_replicated(total, plan.batch_group) / plan.n_batch
             g = torch.autograd.grad(total, params, allow_unused=True)
             g = [torch.zeros_like(p) if x is None else x for p, x in zip(params, g)]
             if k == 1:
@@ -384,6 +418,9 @@ def train_step(cfg: Config, model: MPINetwork, optimizer: torch.optim.Optimizer,
         if k > 1:
             grads = [a / k for a in grads]
             loss_dict = {key: v / k for key, v in loss_dict.items()}
+        if plan is not None:
+            all_reduce_(grads, plan.world_group)
+            all_reduce_(list(loss_dict.values()), plan.batch_group, average=True)
     except BaseException:
         snapshot.restore()
         raise
@@ -392,6 +429,11 @@ def train_step(cfg: Config, model: MPINetwork, optimizer: torch.optim.Optimizer,
     if sentinel:
         ok = torch.isfinite(loss_dict["loss"]) & torch.isfinite(grad_norm)
         finite = ok if finite is None else finite & ok
+        if plan is not None:
+            # a NaN on one rank's micro-batch poisons every rank's verdict
+            verdict = [finite.to(torch.float32).reshape(1)]
+            all_reduce_(verdict, plan.world_group, average=True)
+            finite = verdict[0][0] == 1.0
         skipped = not bool(finite)
     else:
         skipped = False
@@ -409,21 +451,30 @@ def train_step(cfg: Config, model: MPINetwork, optimizer: torch.optim.Optimizer,
 
 @torch.no_grad()
 def eval_step(cfg: Config, model: MPINetwork, batch: dict[str, torch.Tensor],
-              generator: torch.Generator | None = None, lpips_params: dict | None = None):
+              generator: torch.Generator | None = None, lpips_params: dict | None = None,
+              plan=None):
     """The loss graph in eval mode (running BatchNorm statistics, no
     dropout, no update): (loss_dict, scale-0 visualization). Every entry is
     the batch's mean over its genuine examples: the per-example values
     weighted by batch["eval_weight"] (0 on padded slots; all ones when
-    absent), with "eval_examples" their count."""
+    absent), with "eval_examples" their count. With a `plan` the batch is
+    this rank's rows, and the weighted sums and the count are summed over
+    the batch replicas before the division, so the mean is exact whichever
+    rank's rows the padded slots fell on."""
+    from mine_tpu_torch.parallel.comm import all_reduce_
+
     model.eval()
     batch = dict(batch)
     weight = batch.pop("eval_weight", None)
     _, loss_dict, viz = loss_fcn(cfg, model, batch, generator, is_val=True,
-                                 lpips_params=lpips_params, per_example=True)
+                                 lpips_params=lpips_params, per_example=True, plan=plan)
     if weight is None:
         weight = torch.ones_like(loss_dict["psnr_tgt"])
+    num = {key: torch.sum(v * weight) for key, v in loss_dict.items()}
     den = torch.sum(weight)
-    out = {key: torch.sum(v * weight) / torch.clamp(den, min=1.0) for key, v in loss_dict.items()}
+    if plan is not None:
+        all_reduce_([*num.values(), den], plan.batch_group)
+    out = {key: v / torch.clamp(den, min=1.0) for key, v in num.items()}
     out["eval_examples"] = den
     return out, viz
 

@@ -36,6 +36,7 @@ from mine_tpu_torch.models.convert import flatten_variables, jax_variables_to_to
 from mine_tpu_torch.models.mpi import MPINetwork
 from mine_tpu_torch.training import step as tstep
 from mine_tpu_torch.training.optimizer import make_optimizer
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B = 4

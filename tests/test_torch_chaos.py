@@ -2,8 +2,8 @@
 preempt.py) and its trainer's and server's fault paths, on the CPU.
 
   * ChaosSchedule: the same specs through both packages give the same
-    should() sequences, the same pending lists and the same parse errors;
-    the JAX package's multi-host kinds are refused by the port.
+    should() sequences, the same pending lists and the same parse errors,
+    the multi-host kinds included.
   * PreemptionGuard: saves then chains, a failed save still chains, and a
     signal inside a step (deferring()) saves at the step's end.
   * Trainer: preempt_exit@step=2 then a resume is bit-equal to an
@@ -49,6 +49,7 @@ from mine_tpu_torch.training import checkpoint as ckpt
 from mine_tpu_torch.training.loop import Trainer
 from mine_tpu_torch.training.step import build_model
 from tests.test_torch_autoscale import _Elastic
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)
@@ -101,9 +102,16 @@ def test_parse_errors_match_jax(spec, match):
 
 @pytest.mark.parametrize("spec", ["host_kill@step=3", "host_stall@step=2", "coord_down@init=1"])
 def test_multihost_kinds_are_refused_by_the_port(spec):
-    assert jchaos.ChaosSchedule(spec).pending() == [spec]
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 6"):
-        chaos.ChaosSchedule(spec)
+    """The multi-host kinds, refused until the parallel slice gave them
+    their seams (training/loop.py, resilience/multihost.py bring_up), parse
+    as in the JAX package, counter included; a wrong counter is still a
+    parse error in both."""
+    assert chaos.ChaosSchedule(spec).pending() == jchaos.ChaosSchedule(spec).pending() == [spec]
+    kind = spec.split("@")[0]
+    assert chaos.KINDS[kind] == jchaos.KINDS[kind]
+    for module in (chaos, jchaos):
+        with pytest.raises(ValueError):
+            module.ChaosSchedule(f"{kind}@swap=1")
 
 
 def test_environment_activation(monkeypatch):

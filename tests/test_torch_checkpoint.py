@@ -25,6 +25,7 @@ from mine_tpu_torch.data.registry import build_dataset
 from mine_tpu_torch.resilience.sentinel import SentinelAbort, TrainingSentinel
 from mine_tpu_torch.training import checkpoint as ckpt
 from mine_tpu_torch.training.loop import Trainer
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = {
@@ -60,42 +61,65 @@ def _same_state(a: Trainer, b: Trainer) -> None:
         assert torch.equal(sa["generators"][name], sb["generators"][name]), name
 
 
-def test_resume_is_bit_equal_to_an_uninterrupted_run(tmp_path):
-    cfg = _cfg()
-    straight = _fit(cfg, tmp_path / "a", 4)
+@pytest.fixture(scope="module")
+def straight(tmp_path_factory):
+    """4 uninterrupted steps with an eval every 2 steps, shared by the resume,
+    eval, corruption and last-good tests. An eval leaves the training state
+    as it was (eval-mode BatchNorm, its own disparity generator), so this is
+    also the run without evals."""
+    ws = tmp_path_factory.mktemp("straight")
+    return _fit(_cfg(**{"training.eval_interval": 2}), ws, 4, val=True), str(ws)
+
+
+def _copy_workspace(src: str, dst) -> str:
+    """A copy of a workspace whose checkpoint files are hard links (a test
+    that rewrites one unlinks it first)."""
+    import shutil
+
+    def copy(a, b):
+        return os.link(a, b) if a.endswith(ckpt.STATE_FILE) else shutil.copy2(a, b)
+
+    shutil.copytree(src, str(dst), copy_function=copy)
+    return str(dst)
+
+
+def test_resume_is_bit_equal_to_an_uninterrupted_run(straight, tmp_path):
+    straight_trainer, straight_ws = straight
+    cfg = _cfg(**{"training.eval_interval": 2})
     _fit(cfg, tmp_path / "b", 2)
     assert ckpt.all_steps(str(tmp_path / "b")) == [2]
     resumed = _fit(cfg, tmp_path / "b", 4)
-    _same_state(straight, resumed)
-    assert ckpt.all_steps(str(tmp_path / "b")) == [2, 4] == ckpt.all_steps(str(tmp_path / "a"))
+    _same_state(straight_trainer, resumed)
+    assert ckpt.all_steps(str(tmp_path / "b")) == [2, 4] == ckpt.all_steps(straight_ws)
     assert ckpt.last_good_step(str(tmp_path / "b")) == 4
     # and what was saved is what the trainer held
     saved = ckpt.load(str(tmp_path / "b"), 4)
     assert all(torch.equal(saved["model"][k], v) for k, v in resumed.state()["model"].items())
 
 
-def test_eval_runs_at_its_interval(tmp_path):
-    trainer = _fit(_cfg(**{"training.eval_interval": 2}), tmp_path, 4, val=True)
+def test_eval_runs_at_its_interval(straight):
+    trainer, ws = straight
     assert [step for step, _ in trainer.evals] == [2, 4]
     result = trainer.evals[-1][1]
     assert result["eval_examples"] == 4 and np.isfinite(result["psnr_tgt"])
-    lines = (tmp_path / "eval_log.jsonl").read_text().splitlines()
+    with open(os.path.join(ws, "eval_log.jsonl")) as fh:
+        lines = fh.read().splitlines()
     assert [json.loads(ln)["global_step"] for ln in lines] == [2, 4]
 
 
-def test_flipped_byte_raises_checkpoint_corrupt(tmp_path):
-    ws = str(tmp_path)
-    _fit(_cfg(**{"model.remat_decoder": False}), ws, 2)
-    path = os.path.join(ckpt.checkpoint_path(ws), "2", ckpt.STATE_FILE)
-    ckpt.verify_checkpoint_integrity(ws, 2)
+def test_flipped_byte_raises_checkpoint_corrupt(straight, tmp_path):
+    ws = _copy_workspace(straight[1], tmp_path / "ws")
+    path = os.path.join(ckpt.checkpoint_path(ws), "4", ckpt.STATE_FILE)
+    ckpt.verify_checkpoint_integrity(ws, 4)
     data = bytearray(open(path, "rb").read())
     data[len(data) // 2] ^= 0x01
+    os.unlink(path)  # a hard link to the shared run's file
     with open(path, "wb") as fh:
         fh.write(data)
     with pytest.raises(ckpt.CheckpointCorrupt, match="state.pt"):
-        ckpt.load(ws, 2)
+        ckpt.load(ws, 4)
     with pytest.raises(ckpt.CheckpointCorrupt):
-        Trainer(_cfg(), ws, device="cpu").fit(build_dataset(_cfg(), "train", 2), max_steps=3)
+        Trainer(_cfg(), ws, device="cpu").fit(build_dataset(_cfg(), "train", 2), max_steps=5)
 
 
 def test_last_good_pointer_and_retention(tmp_path):
@@ -118,10 +142,9 @@ def test_last_good_pointer_and_retention(tmp_path):
     assert ckpt.last_good_target(ws) == 50
 
 
-def test_resume_from_last_good_takes_the_pointer(tmp_path):
-    ws = str(tmp_path)
+def test_resume_from_last_good_takes_the_pointer(straight, tmp_path):
+    ws = _copy_workspace(straight[1], tmp_path / "ws")
     cfg = _cfg(**{"model.remat_decoder": False})
-    _fit(cfg, ws, 4)
     ckpt.mark_last_good(ws, 2)
     trainer = Trainer(cfg.replace(**{"training.resume_from": "last_good"}), ws, device="cpu")
     trainer.fit(build_dataset(cfg, "train", 2), max_steps=2)
@@ -251,7 +274,7 @@ def test_sentinel_spike_and_policies(policy):
 def test_evaluate_cli_on_the_cpu(tmp_path):
     _fit(_cfg(**{"model.remat_decoder": False}), tmp_path, 2)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["PYTHONPATH"] = REPO
+    env.update(PYTHONPATH=REPO, OMP_NUM_THREADS="1")  # one_torch_thread, for the CLI
     out = subprocess.run(
         [sys.executable, "-m", "mine_tpu_torch.evaluate", "--checkpoint", str(tmp_path),
          "--device", "cpu", "--extra_config", json.dumps({"training.seed": 1})],

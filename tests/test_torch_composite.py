@@ -31,6 +31,7 @@ from mine_tpu.ops import inverse_3x3 as jinv
 from mine_tpu_torch.ops import mpi_render as mr
 from mine_tpu_torch.ops.geometry import apply_3x3, homogeneous_pixel_grid, inverse_3x3
 from mine_tpu_torch.ops.kernels import warp as kw
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, S, H, W = 1, 4, 24, 40
 POSES = {  # (tx, ty, tz, yaw)

@@ -18,7 +18,6 @@ import os
 
 import numpy as np
 import pytest
-import torch
 from PIL import Image
 
 from mine_tpu.data.conformance import contract as j_contract
@@ -26,17 +25,7 @@ from mine_tpu.data.conformance.fixtures import write_fixture as j_write_fixture
 from mine_tpu_torch.data.conformance import contract as t_contract
 from mine_tpu_torch.data.conformance.fixtures import write_fixture as t_write_fixture
 from mine_tpu_torch.data.conformance.runner import check_contract, check_loader, run_matrix
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for this file's torch work: the suite runs files
-    in parallel workers, and torch's default of a thread per core in every
-    worker oversubscribes the machine many times over."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _files(root) -> list[str]:

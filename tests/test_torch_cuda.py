@@ -96,6 +96,36 @@ def test_warp_composite_kernel_matches_plain(cuda, s, pose):
         assert float(got[:, 5].mean()) < 0.5 * s  # fewer than half the planes in view
 
 
+@pytest.mark.parametrize("s,pose", [(1, "gentle"), (16, "gentle"), (16, "plane_behind"),
+                                    (16, "edge_on")])
+def test_warp_composite_with_a_halo_plane_matches_plain(cuda, s, pose):
+    """S + 1 planes of matrices for an S-plane payload (a plane shard but the
+    last): the last plane's distance runs to the halo plane's point."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    n, h, w = 2, 40, 72
+    rgb = torch.rand((n, s, h, w, 3), generator=gen, device=cuda)
+    sigma = torch.rand((n, s, h, w, 1), generator=gen, device=cuda) * 3
+    k = torch.tensor([[36.0, 0, w / 2], [0, 36.0, h / 2], [0, 0, 1]], device=cuda).expand(n, 3, 3)
+    tx, ty, tz, yaw = COMPOSITE_POSES[pose]
+    g = torch.eye(4, device=cuda).repeat(n, 1, 1)
+    g[:, 0, 0], g[:, 0, 2], g[:, 2, 0], g[:, 2, 2] = (math.cos(yaw), math.sin(yaw),
+                                                      -math.sin(yaw), math.cos(yaw))
+    g[:, :3, 3] = torch.tensor([tx, ty, tz], device=cuda)
+    disparity = torch.linspace(1.0, 0.1, s + 1, device=cuda)[None].repeat(n, 1)
+    mats = streaming_matrices(disparity[:, :s], g, inverse_3x3(k), k,
+                              halo_depth=1.0 / disparity[:, s])
+    assert mats[0].shape == (n, s + 1, 3, 3)
+    kw.reset_launches()
+    got = kw.warp_composite(rgb, sigma, *mats)
+    torch.cuda.synchronize()
+    assert kw.launches["warp_composite"] == 1
+    torch.testing.assert_close(got, kw.warp_composite_matrix_plain(rgb, sigma, *mats),
+                               rtol=1e-5, atol=1e-5)
+    no_halo = kw.warp_composite(rgb, sigma, *streaming_matrices(disparity[:, :s], g,
+                                                                inverse_3x3(k), k))
+    assert not torch.allclose(got[:, 6], no_halo[:, 6])  # the last distance differs
+
+
 def test_warp_composite_refuses_a_strided_mpi(cuda):
     mpi = torch.rand((1, 2, 8, 16, 4), device=cuda)
     mats = torch.eye(3, device=cuda).expand(1, 2, 3, 3).contiguous()

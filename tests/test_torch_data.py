@@ -22,7 +22,6 @@ import types
 
 import numpy as np
 import pytest
-import torch
 from PIL import Image
 
 import mine_tpu.data.colmap as j_colmap
@@ -45,6 +44,7 @@ from mine_tpu.data.conformance.runner import _load_cfg as j_load_cfg
 from mine_tpu.data.conformance.runner import conformance_overrides
 from mine_tpu_torch.config import Config as TConfig
 from mine_tpu_torch.data.conformance.runner import _load_cfg as t_load_cfg
+from torch_threads import one_torch_thread  # noqa: F401
 
 PKGS = {
     "jax": types.SimpleNamespace(
@@ -62,17 +62,6 @@ FAMILY_CONFIGS = {
     "realestate10k": "realestate", "kitti_raw": "kitti_raw", "dtu": "dtu",
     "flowers": "flowers", "synthetic": "synthetic",
 }
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for this file's torch work: the suite runs files
-    in parallel workers, and torch's default of a thread per core in every
-    worker oversubscribes the machine many times over."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 # -- COLMAP ------------------------------------------------------------------

@@ -37,6 +37,7 @@ from mine_tpu_torch.data.registry import build_dataset
 from mine_tpu_torch.models.convert import flatten_variables, jax_variables_to_torch
 from mine_tpu_torch.models.mpi import MPINetwork
 from mine_tpu_torch.training import step as tstep
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B = 4
@@ -46,17 +47,6 @@ TINY = {
     "data.visible_point_count": 16, "model.num_layers": 18, "model.dtype": "float32",
     "mpi.num_bins_coarse": 2, "mpi.fix_disparity": True,
 }
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for this file's torch work: the suite runs files
-    in parallel workers, and torch's default of a thread per core in every
-    worker oversubscribes the machine many times over."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _random_variables(jcfg, seed: int) -> dict:

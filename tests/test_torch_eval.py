@@ -39,6 +39,7 @@ from mine_tpu_torch.losses.lpips import _TAP_CHANNELS, _VGG16_CFG, load_lpips_pa
 from mine_tpu_torch.models.convert import flatten_variables, jax_variables_to_torch
 from mine_tpu_torch.models.mpi import MPINetwork
 from mine_tpu_torch.training import step as tstep
+from torch_threads import one_torch_thread  # noqa: F401
 
 B = 2
 TINY = {

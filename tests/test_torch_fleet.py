@@ -48,6 +48,7 @@ from mine_tpu_torch.serving.compress import CompressedMPI
 from mine_tpu_torch.serving.fake import fake_checkpoint, fake_slabs, make_fake_app
 from mine_tpu_torch.serving.server import ServingApp, make_server
 from mine_tpu_torch.training.step import build_model
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _png(i: int = 0, size: int = 8) -> bytes:

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 from mine_tpu.ops import geometry as jgeo
 from mine_tpu.ops import homography as jhom
 from mine_tpu_torch.ops import geometry, homography
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _rotation(rng, max_angle: float) -> np.ndarray:

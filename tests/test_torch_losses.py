@@ -24,6 +24,7 @@ from mine_tpu_torch.losses import metrics, smoothness
 from mine_tpu_torch.losses.ssim import ssim
 from mine_tpu_torch.ops import sampling
 from mine_tpu_torch.ops.geometry import scale_intrinsics
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, H, W = 2, 20, 28
 

@@ -20,6 +20,7 @@ from mine_tpu.models import MPINetwork as JaxMPINetwork
 from mine_tpu_torch.models.convert import flatten_variables, jax_variables_to_torch
 from mine_tpu_torch.models.embedder import positional_encode
 from mine_tpu_torch.models.mpi import MPINetwork
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, S, H, W = 1, 3, 128, 128
 

@@ -38,6 +38,7 @@ from mine_tpu_torch.obs.flight import FlightRecorder
 from mine_tpu_torch.obs.trace import Tracer
 from mine_tpu_torch.training.loop import Trainer
 from tests.test_torch_model import random_jax_variables
+from torch_threads import one_torch_thread  # noqa: F401
 
 # -- cost ------------------------------------------------------------------------------
 

@@ -31,17 +31,7 @@ from mine_tpu_torch.data.conformance.fixtures import write_fixture
 from mine_tpu_torch.data.pipeline import LoaderRetriesExhausted, TransientLoaderError, prefetch
 from mine_tpu_torch.data.registry import build_dataset
 from mine_tpu_torch.training.loop import Trainer, staged_batches
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for this file's torch work: the suite runs files
-    in parallel workers, and torch's default of a thread per core in every
-    worker oversubscribes the machine many times over."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_order_and_completeness():

@@ -33,6 +33,7 @@ from mine_tpu_torch.models.convert import flatten_variables, jax_variables_to_to
 from mine_tpu_torch.models.mpi import MPINetwork, init_weights
 from mine_tpu_torch.models.norm import BatchNorm2d
 from mine_tpu_torch.training import step as tstep
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, S, H, W = 2, 3, 128, 128
 RATE = 0.5

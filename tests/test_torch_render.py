@@ -20,6 +20,7 @@ from mine_tpu.ops import inverse_3x3 as jinv
 from mine_tpu_torch.config import Config
 from mine_tpu_torch.ops import mpi_render as mr
 from mine_tpu_torch.ops.geometry import inverse_3x3
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, S, H, W = 1, 4, 16, 136
 

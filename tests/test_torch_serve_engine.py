@@ -28,6 +28,7 @@ from mine_tpu_torch.models.convert import flatten_variables, jax_variables_to_to
 from mine_tpu_torch.serving import compress as tc
 from mine_tpu_torch.serving.engine import RenderEngine, SwapInProgress, SwapRejected
 from tests.test_torch_model import random_jax_variables
+from torch_threads import one_torch_thread  # noqa: F401
 
 H = W = 128
 S = 4

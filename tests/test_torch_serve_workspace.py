@@ -23,6 +23,7 @@ from mine_tpu_torch.serving.server import ServingApp
 from mine_tpu_torch.training import checkpoint as ckpt
 from mine_tpu_torch.training.loop import Trainer
 from mine_tpu_torch.training.step import build_model
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = {"data.img_h": 128, "data.img_w": 128, "data.img_pre_downsample_ratio": 1.0,

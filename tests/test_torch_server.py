@@ -36,6 +36,7 @@ from mine_tpu_torch.serving import server as tserver
 from mine_tpu_torch.serving.cache import key_from_str
 from mine_tpu_torch.serving.server import ServingApp, make_server
 from tests.test_torch_model import random_jax_variables
+from torch_threads import one_torch_thread  # noqa: F401
 
 H = W = 128
 S = 4

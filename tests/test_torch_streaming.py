@@ -34,6 +34,7 @@ import mine_tpu.ops.mpi_render as jmr
 from mine_tpu.ops import inverse_3x3 as jinv
 from mine_tpu_torch.ops import mpi_render as mr
 from mine_tpu_torch.ops.geometry import inverse_3x3
+from torch_threads import one_torch_thread  # noqa: F401
 
 H, W = 24, 40
 CASES = {  # name: (B, S, chunk, (tx, ty, tz, yaw), is_bg_depth_inf, use_alpha)

@@ -62,6 +62,7 @@ from mine_tpu_torch.models.mpi import MPINetwork
 from mine_tpu_torch.models.norm import BatchNorm2d
 from mine_tpu_torch.training import step as tstep
 from mine_tpu_torch.training.optimizer import make_optimizer
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = {
@@ -458,7 +459,7 @@ def test_train_cli_runs_two_steps_on_the_cpu(tmp_path):
                  "model.dtype": "float32", "mpi.num_bins_coarse": 2,
                  "data.visible_point_count": 16, "training.log_interval": 1}
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["PYTHONPATH"] = REPO
+    env.update(PYTHONPATH=REPO, OMP_NUM_THREADS="1")  # one_torch_thread, for the CLI
     out = subprocess.run(
         [sys.executable, "-m", "mine_tpu_torch.train", "--device", "cpu",
          "--workspace", str(tmp_path / "ws"), "--max_steps", "2",
@@ -475,14 +476,20 @@ def test_unhonoured_options_raise_naming_the_roadmap_item():
     """What the port does not honour yet raises, naming its ROADMAP queue 1
     item; accumulation, sigma dropout, remat, the sentinel and an .npz warm
     start are honoured now (tests/test_torch_accum.py, test_torch_remat.py,
-    test_torch_checkpoint.py)."""
+    test_torch_checkpoint.py), and the data and plane mesh axes since the
+    parallel slice (tests/test_torch_parallel.py): one process refuses a
+    plane axis of 2 as the JAX mesh does, with the device count."""
     from mine_tpu_torch.training.loop import Trainer
 
-    for key, value in (("mesh.plane_parallel", 2), ("mpi.num_bins_fine", 4),
+    for key, value in (("mesh.fsdp_parallel", 2), ("parallel.zero1", True),
+                       ("parallel.rules", ("^params/decoder/ = replicated",)),
+                       ("mpi.num_bins_fine", 4),
                        ("training.pretrained_checkpoint_path", "/nowhere/orbax_run")):
         cfg = Config().replace(**TINY, **{key: value})
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
             Trainer(cfg, device="cpu")
+    with pytest.raises(ValueError, match="plane_parallel=2 must divide 1 devices"):
+        Trainer(Config().replace(**TINY, **{"mesh.plane_parallel": 2}), device="cpu")
     for key, value in (("training.accum_steps", 2), ("mpi.sigma_dropout_rate", 0.1),
                        ("model.remat_decoder", True), ("resilience.sentinel_policy", "skip")):
         Trainer(Config().replace(**TINY, **{key: value}), device="cpu")

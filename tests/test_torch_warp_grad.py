@@ -28,6 +28,7 @@ import mine_tpu.ops.grid_sample as gs
 from mine_tpu.ops.pallas.warp import warp_bilinear_grad_chw, warp_bilinear_grad_chw_banded
 from mine_tpu_torch.ops.grid_sample import grid_sample_pixel
 from mine_tpu_torch.ops.kernels import warp as kw
+from torch_threads import one_torch_thread  # noqa: F401
 
 N, C, H, W = 2, 3, 24, 136
 HO, WO = 16, 130
