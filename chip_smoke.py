@@ -94,7 +94,7 @@ From the root of a checkout, on a machine with a CUDA device and nvcc:
      within 2 %; its gradient no farther from the fp32 one-process gradient
      than the bf16 one-process gradient is, x1.5, and its norm likewise),
      each against a one-process run of the same seed; later steps and the
-     weights after 3 Adam steps are reported beside two one-process runs'
+     weights after 2 Adam steps are reported beside two one-process runs'
      own gaps, not held (Adam's first update turns rounding into +-lr, and
      two identical one-process runs drift apart too); the 768x1024, S=128 recipe at plane=2 (the banded
      size class; first loss within 2 %); a one-rank NCCL job whose bring-up
@@ -102,6 +102,18 @@ From the root of a checkout, on a machine with a CUDA device and nvcc:
      named abort (exit 83) within the watchdog window; K5 with a halo plane
      against its plain version on a plane shard's real inputs, and the two
      shards composed into the whole render;
+ 12. shards training state and places planes coarse-to-fine (right after
+     the parallel phase): the train CLI on two gloo ranks under
+     mesh.fsdp_parallel=2 and under data=2 with parallel.zero1 (fp32, B=4,
+     2 steps each; each rank's resident parameter and Adam-moment bytes
+     equal the partition-rule table's placement_bytes, below replication;
+     the first step's loss dict at rtol 1e-4 and gradient within 5 % of the
+     data=2 run's), the fsdp=2 checkpoint resumed in one process for a
+     step; mpi.num_bins_fine=32 (64 planes): 2 dense fp32 steps at B=2 with
+     their peak memory, 2 steps at plane=2 on two ranks (first step's loss
+     dict at rtol 1e-4), a RenderEngine coarse-to-fine bucket predicting
+     once and rendering poses (K5 at S=64, held against its plain version)
+     and a VideoGenerator rendering them dense;
  11. times every kernel (CUDA events), its plain version and, for the warp
      and its backward, torch's grid_sample, beside each kernel's memory
      bound (the backward also on the captured training operands; the
@@ -597,7 +609,7 @@ LLFF_STORED_HW = (378, 504)
 # the feed timing: rounds of the three feeds in turn, steps per feed and
 # round, and how many of those first steps are not counted (the pipeline
 # fills: 4 workers build up to 4 batches ahead)
-FEED_ROUNDS, FEED_STEPS, FEED_SKIP = 2, 6, 2
+FEED_ROUNDS, FEED_STEPS, FEED_SKIP = 1, 6, 2
 # recipe yaml -> fixture writer arguments near the recipe's own size, with
 # at least one batch of train views (DTU's B=8 needs 8); flowers' writer
 # needs square views, so its 384x384 tiles are resized to 384x512
@@ -2309,32 +2321,52 @@ def obs_resilience_phase(info, dev, train_cfg, train_state, llff_ws: str,
 
 # -- 10. the parallel path: ranks of one job sharing the card -------------------------
 
-PARALLEL_STEPS = 3
+PARALLEL_STEPS = 2
 # the watchdog window of the host_stall drill, seconds
 STALL_WINDOW_S = 15.0
 
 
-def train_rank_main(out_prefix: str, argv: list[str]) -> int:
-    """One rank of a torchrun job (`chip_smoke.py --train-rank OUT <train
-    CLI args>`): the train CLI's main with TF32 off, then what the rank saw
-    into OUT.r<rank>.json: its kernel launches (K1/K2 by size class), the
-    process group's backend, the mesh, each step's time, its peak memory, a
-    digest of its parameters (replicas must hold the same ones) and what
-    the chaos schedule left pending; rank 0 saves its first step's
-    gradients (the mesh's, all-reduced) to OUT.grads.pt."""
+def train_rank_main(spec_path: str) -> int:
+    """One rank of a torchrun job (`chip_smoke.py --train-rank SPEC`): SPEC
+    is a JSON list of [OUT, train CLI args] segments, run one after the
+    other in this process on one process group (the launch, the imports and
+    the group's bring-up are paid once; the group is destroyed after the
+    last segment). Each segment is the train CLI's main with TF32 off, then
+    what the rank saw into OUT.r<rank>.json: its kernel launches (K1/K2 by
+    size class), the process group's backend, the mesh, each step's time,
+    the segment's seconds, its peak memory, a digest of its parameters
+    (replicas must hold the same ones) and what the chaos schedule left
+    pending; rank 0 saves its first step's gradients (the mesh's,
+    all-reduced) to OUT.grads.pt. Under a sharded state layout the
+    gradients are saved full, before the sharded update slices them, and
+    the rank records its parameter and moment bytes (resident, by the
+    table, replicated)."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import gc
+
     import torch.distributed as dist
 
     from mine_tpu_torch import train
     from mine_tpu_torch.ops.kernels import warp as kw
+    from mine_tpu_torch.parallel import data_parallel as dp
     from mine_tpu_torch.parallel.mesh import mesh_shape_str
     from mine_tpu_torch.resilience import chaos
     from mine_tpu_torch.training import loop
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    seen: dict = {"step_ms": []}
+    with open(spec_path) as fh:
+        segments = json.load(fh)
+    seen: dict = {}
+    out_prefix = ""
     step, fit = loop.Trainer.step, loop.Trainer.fit
+    sharded_step = dp.sharded_optimizer_step
+    destroy = dist.destroy_process_group
+
+    def saving_sharded_step(optimizer, scheduler, model, layout, mesh):
+        if not seen["step_ms"] and dist.get_rank() == 0:  # the first step's full gradients
+            save_grads(model, f"{out_prefix}.grads.pt")
+        return sharded_step(optimizer, scheduler, model, layout, mesh)
 
     def timed_step(self, batch):
         torch.cuda.synchronize(self.device)
@@ -2342,7 +2374,7 @@ def train_rank_main(out_prefix: str, argv: list[str]) -> int:
         out = step(self, batch)
         torch.cuda.synchronize(self.device)
         seen["step_ms"].append((time.perf_counter() - t) * 1e3)
-        if len(seen["step_ms"]) == 1 and self.is_main:
+        if len(seen["step_ms"]) == 1 and self.is_main and self.layout is None:
             save_grads(self.model, f"{out_prefix}.grads.pt")
         return out
 
@@ -2360,18 +2392,37 @@ def train_rank_main(out_prefix: str, argv: list[str]) -> int:
                 seen["digest"] = [sum(float(p.sum()) for p in params),
                                   sum(float(p.abs().sum()) for p in params)]
             seen["peak_allocated_gb"] = torch.cuda.max_memory_allocated(self.device) / 1e9
+            if self.layout is not None:
+                seen["state_bytes"] = dp.state_bytes(self.model, self.optimizer, self.layout,
+                                                     self.mesh)
 
     loop.Trainer.step, loop.Trainer.fit = timed_step, recorded_fit
-    kw.reset_launches()
-    tally = SizeTally(kw)
-    logged = train.main(argv)
-    torch.cuda.synchronize()
-    schedule = chaos.active()
-    seen.update(logged=logged, launches=dict(kw.launches), sizes=tally.read(),
-                chaos_pending=schedule.pending() if schedule is not None else None)
+    dp.sharded_optimizer_step = saving_sharded_step
+    # the group outlives each segment's CLI run (its main destroys it)
+    dist.destroy_process_group = lambda *a, **k: None
     rank = int(os.environ.get("RANK", "0"))
-    with open(f"{out_prefix}.r{rank}.json", "w") as fh:
-        json.dump(seen, fh)
+    try:
+        for out_prefix, argv in segments:
+            seen.clear()
+            seen["step_ms"] = []
+            t_segment = time.perf_counter()
+            kw.reset_launches()
+            tally = SizeTally(kw)
+            logged = train.main(argv)
+            torch.cuda.synchronize()
+            schedule = chaos.active()
+            seen.update(logged=logged, launches=dict(kw.launches), sizes=tally.read(),
+                        chaos_pending=schedule.pending() if schedule is not None else None,
+                        seconds=time.perf_counter() - t_segment)
+            tally.close()
+            with open(f"{out_prefix}.r{rank}.json", "w") as fh:
+                json.dump(seen, fh)
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group = destroy
+        if dist.is_initialized():
+            destroy()
     return 0
 
 
@@ -2408,32 +2459,48 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def run_ranks(out_dir: str, label: str, nproc: int, train_args: list[str],
-              env: dict | None = None, timeout_s: float = 300.0) -> tuple[list[dict], float]:
-    """`python -m torch.distributed.run --nproc-per-node nproc` over this
-    script's rank mode, the train CLI's arguments after it; every rank's
-    record, and the wall time of the launch."""
+def run_rank_segments(out_dir: str, label: str, nproc: int, segments: dict[str, list[str]],
+                      env: dict | None = None,
+                      timeout_s: float = 600.0) -> tuple[dict[str, list[dict]], float]:
+    """One `python -m torch.distributed.run --nproc-per-node nproc` launch of
+    this script's rank mode over `segments` ({segment label: train CLI
+    args}, run in order); each segment's ranks' records, and the wall time
+    of the launch (its log: <label>.log)."""
     prefix = os.path.join(out_dir, label)
+    spec = [[os.path.join(out_dir, seg), args] for seg, args in segments.items()]
+    with open(f"{prefix}.spec.json", "w") as fh:
+        json.dump(spec, fh)
     # two ranks' caching allocators share the card: segments that grow
     # instead of new blocks keep each rank's reserve near its use
     env = {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True", **(env or {})}
     cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(nproc),
            "--master-addr", "127.0.0.1", "--master-port", str(free_port()),
-           os.path.abspath(__file__), "--train-rank", prefix, *train_args]
+           os.path.abspath(__file__), "--train-rank", f"{prefix}.spec.json"]
     t = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout_s,
-                          env={**os.environ, **(env or {})})
+                          env={**os.environ, **env})
     seconds = time.perf_counter() - t
     with open(f"{prefix}.log", "w") as fh:
         fh.write(proc.stdout + proc.stderr)
     if proc.returncode != 0:
         raise AssertionError(f"{label}: torchrun exited {proc.returncode}:\n"
                              f"{proc.stderr[-4000:]}")
-    ranks = []
-    for r in range(nproc):
-        with open(f"{prefix}.r{r}.json") as fh:
-            ranks.append(json.load(fh))
-    return ranks, seconds
+    records = {}
+    for seg in segments:
+        records[seg] = []
+        for r in range(nproc):
+            with open(os.path.join(out_dir, f"{seg}.r{r}.json")) as fh:
+                records[seg].append(json.load(fh))
+    return records, seconds
+
+
+def run_ranks(out_dir: str, label: str, nproc: int, train_args: list[str],
+              env: dict | None = None, timeout_s: float = 300.0) -> tuple[list[dict], float]:
+    """One launch of one training run: its ranks' records and the launch's
+    wall time."""
+    records, seconds = run_rank_segments(out_dir, label, nproc, {label: train_args}, env,
+                                         timeout_s)
+    return records[label], seconds
 
 
 def train_log(ws: str) -> list[dict]:
@@ -2478,7 +2545,62 @@ def loss_gaps(a: list[dict], b: list[dict], keys=LOSS_TERMS) -> list[float]:
     return [max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-12) for k in keys) for x, y in zip(a, b)]
 
 
-def parallel_phase(info, dev, entry, g1) -> dict:
+ROOT = os.path.dirname(os.path.abspath(__file__))
+DEFAULT_CONFIG = os.path.join(ROOT, "mine_tpu", "configs", "default.yaml")
+# the rank runs' common overrides: synthetic batches, every step logged
+RANK_BASE = {"data.name": "synthetic", "training.log_interval": 1, "data.num_workers": 0,
+             "training.checkpoint_interval": 1000}
+RANK_FP32 = {**RANK_BASE, "model.dtype": "float32"}
+
+
+def release_card() -> None:
+    """This process's cached blocks back to the card, for the ranks (a
+    Trainer's bound methods hold it in cycles: collect first)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def rank_cli_args(ws: str, over: dict, steps: int, config: str = DEFAULT_CONFIG) -> list[str]:
+    """The train CLI's arguments of a two-rank gloo run sharing cuda:0."""
+    return ["--config", config, "--workspace", ws, "--max_steps", str(steps),
+            "--extra_config", json.dumps(over), "--dist-backend", "gloo",
+            "--device", "cuda:0"]
+
+
+def one_process_run(out_dir: str, label: str, over: dict, steps: int,
+                    config: str = DEFAULT_CONFIG) -> str:
+    """The one-process run in this process, as the CLI builds it; its first
+    step's gradients to <label>.grads.pt. Returns its workspace."""
+    from mine_tpu_torch.config import load_config
+    from mine_tpu_torch.data.registry import build_dataset
+    from mine_tpu_torch.training.loop import Trainer
+
+    ws = os.path.join(out_dir, label)
+    cfg = load_config(config, overrides=over)
+    tr = Trainer(cfg, ws)
+    step = tr.step
+
+    def recorded_step(batch):
+        out = step(batch)
+        if tr.global_step == 1:
+            save_grads(tr.model, os.path.join(out_dir, f"{label}.grads.pt"))
+        return out
+
+    tr.step = recorded_step
+    tr.fit(build_dataset(cfg, "train", tr.global_batch),
+           build_dataset(cfg, "val", tr.global_batch), max_steps=steps)
+    del tr, step, recorded_step
+    release_card()
+    return ws
+
+
+PARALLEL_DIR = os.path.join(ROOT, "build", "chip_smoke", "parallel")
+
+
+def parallel_phase(info, dev, entry, g1, extra_segments: dict[str, list[str]]) -> dict:
     """The parallel path (parallel/, resilience/multihost.py) through the
     train CLI under torchrun, two ranks sharing this card over gloo (NCCL
     puts one rank on a device, and the machine has one): data=2 and
@@ -2487,73 +2609,40 @@ def parallel_phase(info, dev, entry, g1) -> dict:
     a one-rank NCCL job whose bring-up survives coord_down@init=1; a
     host_stall@step=2 drill ending in the named abort within the watchdog
     window. K5 with a halo plane is held against its plain version on a
-    plane shard's real inputs. Returns each path's launches (summed over
-    ranks) and the K5 halo row's inputs and launches."""
+    plane shard's real inputs. Every gloo training run, `extra_segments`
+    (later phases' runs) with them, goes through one torchrun launch after
+    the one-process references (the rank mode's segments). Returns each
+    path's launches (summed over ranks), the K5 halo row's inputs and
+    launches, and the extra segments' records."""
     import shutil
 
     from mine_tpu_torch.config import load_config
-    from mine_tpu_torch.data.registry import build_dataset
     from mine_tpu_torch.models.mpi import init_weights
     from mine_tpu_torch.ops import mpi_render as mr
     from mine_tpu_torch.ops.geometry import inverse_3x3
     from mine_tpu_torch.ops.kernels import warp as kw
     from mine_tpu_torch.resilience import multihost
-    from mine_tpu_torch.training.loop import Trainer
     from mine_tpu_torch.training.step import build_model
 
-    import gc
-
-    root = os.path.dirname(os.path.abspath(__file__))
-    out_dir = os.path.join(root, "build", "chip_smoke", "parallel")
-    shutil.rmtree(out_dir, ignore_errors=True)
-    os.makedirs(out_dir)
-
-    def release() -> None:
-        """This process's cached blocks back to the card, for the ranks
-        (a Trainer's bound methods hold it in cycles: collect first)."""
-        gc.collect()
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-
-    release()
+    root = ROOT
+    out_dir = PARALLEL_DIR
+    os.makedirs(out_dir, exist_ok=True)
+    release_card()
     t_phase = time.perf_counter()
-    out = {"launches": {}}
-    default = os.path.join(root, "mine_tpu", "configs", "default.yaml")
-    base = {"data.name": "synthetic", "training.log_interval": 1, "data.num_workers": 0,
-            "training.checkpoint_interval": 1000}
-
-    def cli_args(ws: str, over: dict, steps: int, config: str = default) -> list[str]:
-        return ["--config", config, "--workspace", ws, "--max_steps", str(steps),
-                "--extra_config", json.dumps(over), "--dist-backend", "gloo",
-                "--device", "cuda:0"]
+    out = {"launches": {}, "out_dir": out_dir}
+    default = DEFAULT_CONFIG
+    base = RANK_BASE
+    cli_args = rank_cli_args
 
     def reference(label: str, over: dict, steps: int, config: str = default):
-        """The one-process run in this process, as the CLI builds it; its
-        first step's gradients to <label>.grads.pt."""
-        ws = os.path.join(out_dir, label)
-        cfg = load_config(config, overrides=over)
-        tr = Trainer(cfg, ws)
-        step = tr.step
-
-        def recorded_step(batch):
-            out = step(batch)
-            if tr.global_step == 1:
-                save_grads(tr.model, os.path.join(out_dir, f"{label}.grads.pt"))
-            return out
-
-        tr.step = recorded_step
-        tr.fit(build_dataset(cfg, "train", tr.global_batch),
-               build_dataset(cfg, "val", tr.global_batch), max_steps=steps)
-        del tr, step, recorded_step
-        release()
-        return ws
+        return one_process_run(out_dir, label, over, steps, config)
 
     def first_grads(label: str) -> dict:
         return torch.load(os.path.join(out_dir, f"{label}.grads.pt"))
 
     # the one-process runs, twice for fp32: how far two identical runs lie
     # apart (the backward kernel adds in a run-dependent order)
-    fp32 = {**base, "model.dtype": "float32"}
+    fp32 = RANK_FP32
     refs = {}
     for label, over in (("ref_dense_fp32", fp32), ("ref_dense_fp32_again", fp32),
                         ("ref_streaming_fp32", {**fp32, "mpi.compositor": "streaming"}),
@@ -2593,10 +2682,27 @@ def parallel_phase(info, dev, entry, g1) -> dict:
         "data2_dense_bf16": ({**base, "data.per_gpu_batch_size": 2, "mesh.data_parallel": 2},
                              "ref_dense_bf16", False),
     }
+    # the 768x1024, S=128 recipe with remat at plane=2, 2 steps, against one
+    # process's first loss (bf16: 2 %)
+    highres = os.path.join(root, "mine_tpu", "configs", "llff_highres.yaml")
+    hr_over = {**base, "mpi.compositor": "streaming"}
+    hr_ref = reference("ref_highres", hr_over, 2, highres)
+    hr_ws = os.path.join(out_dir, "plane2_highres")
+    segments = {label: cli_args(os.path.join(out_dir, label), over, PARALLEL_STEPS)
+                for label, (over, _, _) in runs.items()}
+    segments["plane2_highres"] = cli_args(
+        hr_ws, {**hr_over, "mesh.plane_parallel": 2, "mesh.data_parallel": 1}, 2, highres)
+    segments.update(extra_segments)
+    records, launch_s = run_rank_segments(out_dir, "gloo_runs", 2, segments, timeout_s=1000.0)
+    out["records"] = {k: records[k] for k in extra_segments}
+    emit(info, phase="parallel", path="gloo_launch", segments=list(segments),
+         seconds=launch_s, segment_seconds={k: [r["seconds"] for r in v]
+                                            for k, v in records.items()})
     results = {}
     for label, (over, ref, is_fp32) in runs.items():
         ws = os.path.join(out_dir, label)
-        ranks, seconds = run_ranks(out_dir, label, 2, cli_args(ws, over, PARALLEL_STEPS))
+        ranks = records[label]
+        seconds = ranks[0]["seconds"]
         if not all(r["backend"] == "gloo" and r["world"] == 2 and r["plan"] for r in ranks):
             raise AssertionError(f"{label}: not a 2-rank gloo job on a mesh {ranks}")
         if ranks[0]["digest"] != ranks[1]["digest"]:
@@ -2621,7 +2727,7 @@ def parallel_phase(info, dev, entry, g1) -> dict:
             # the 5 % that the JAX package's own equivalence tests allow for
             # discrete selections (edge masks, point gathers, the valid-mask
             # threshold) flipping on reassociation noise; a double sum is
-            # 100 % off. Later steps and the weights after 3 Adam steps are
+            # 100 % off. Later steps and the weights after the Adam steps are
             # reported beside two one-process runs' own gaps: Adam's first
             # update, lr * sign(g), turns any gradient noise into +-lr.
             # The gradient vector is held at the same 5 % (relative L2):
@@ -2668,14 +2774,8 @@ def parallel_phase(info, dev, entry, g1) -> dict:
             # rank 0 holds the front planes: each of its K5 launches has a halo
             out["k5_halo_launches"] = ranks[0]["launches"]["warp_composite"]
 
-    # the 768x1024, S=128 recipe with remat at plane=2, 2 steps, against one
-    # process's first loss (bf16: 2 %)
-    highres = os.path.join(root, "mine_tpu", "configs", "llff_highres.yaml")
-    hr_over = {**base, "mpi.compositor": "streaming"}
-    hr_ref = reference("ref_highres", hr_over, 2, highres)
-    hr_ws = os.path.join(out_dir, "plane2_highres")
-    ranks, seconds = run_ranks(out_dir, "plane2_highres", 2, cli_args(
-        hr_ws, {**hr_over, "mesh.plane_parallel": 2, "mesh.data_parallel": 1}, 2, highres))
+    ranks = records["plane2_highres"]
+    seconds = ranks[0]["seconds"]
     hr_gap = loss_gaps(train_log(hr_ws)[:1], train_log(hr_ref)[:1])
     banded = [r["sizes"]["warp_bilinear"]["banded"] for r in ranks]
     if hr_gap[0] > 0.02 or not all(banded):
@@ -2776,6 +2876,212 @@ def parallel_phase(info, dev, entry, g1) -> dict:
     emit(info, phase="parallel", path="summary", seconds=out["seconds"],
          note="two ranks share one card over gloo: these step times are no scaling figure")
     return out
+
+
+SHARDED_STEPS = 2
+C2F_FINE = 32  # mpi.num_bins_fine of the coarse-to-fine phase: 32 + 32 = 64 planes
+
+
+def rank_launches(ranks: list[dict]) -> dict:
+    """A rank run's kernel launches and K1/K2 size classes, summed over its
+    ranks."""
+    from mine_tpu_torch.ops.kernels import warp as kw
+
+    return {"kernels": {k: sum(r["launches"][k] for r in ranks) for k in kw.launches},
+            "sizes": {k: {c: sum(r["sizes"][k][c] for r in ranks) for c in ("resident", "banded")}
+                      for k in ("warp_bilinear", "warp_bilinear_grad")}}
+
+
+def resident_launches(launches: dict) -> dict:
+    """A one-process path's launches at 384x512 (K1/K2 all resident)."""
+    return {"kernels": launches,
+            "sizes": {k: {"resident": launches[k], "banded": 0}
+                      for k in ("warp_bilinear", "warp_bilinear_grad")}}
+
+
+SHARDED_RUNS = {"fsdp2_fp32": {"mesh.data_parallel": 1, "mesh.fsdp_parallel": 2},
+                "zero1_data2_fp32": {"mesh.data_parallel": 2, "parallel.zero1": True}}
+C2F_OVER = {**RANK_FP32, "data.per_gpu_batch_size": 2, "mpi.num_bins_fine": C2F_FINE}
+
+
+def section12_segments() -> dict[str, list[str]]:
+    """The two-rank training runs of the sharded_state and coarse_to_fine
+    phases, launched with the parallel phase's (`parallel_phase`
+    extra_segments)."""
+    segments = {label: rank_cli_args(os.path.join(PARALLEL_DIR, label),
+                                     {**RANK_FP32, "data.per_gpu_batch_size": 2, **over},
+                                     SHARDED_STEPS)
+                for label, over in SHARDED_RUNS.items()}
+    segments["c2f_plane2_fp32"] = rank_cli_args(
+        os.path.join(PARALLEL_DIR, "c2f_plane2_fp32"),
+        {**C2F_OVER, "mesh.plane_parallel": 2, "mesh.data_parallel": 1}, 2)
+    return segments
+
+
+def sharded_state_phase(info, par: dict) -> dict:
+    """Sharded training state (parallel/rules.py) through the train CLI on
+    two gloo ranks sharing the card (segments of the parallel phase's
+    launch, `section12_segments`), the default recipe in fp32 at B=4:
+    mesh.fsdp_parallel=2, and data=2 with parallel.zero1, SHARDED_STEPS
+    steps each. Each rank's resident parameter and Adam-moment bytes must
+    equal the table's placement_bytes and lie below the replicated figure;
+    the first step's loss terms and gradients are held against the
+    parallel phase's data=2 run (the same batch split) at the tolerances
+    the parallel phase holds data=2 to (1e-4, 5 %), and reported as
+    relative gaps; the fsdp=2 checkpoint, gathered on save, resumes in one
+    process for a step. Returns each run's launches."""
+    from mine_tpu_torch.config import load_config
+    from mine_tpu_torch.data.registry import build_dataset
+    from mine_tpu_torch.training.loop import Trainer
+
+    t_phase = time.perf_counter()
+    out_dir = par["out_dir"]
+    data2_ws = os.path.join(out_dir, "data2_dense_fp32")
+    data2_grads = torch.load(os.path.join(out_dir, "data2_dense_fp32.grads.pt"))
+    launches, results = {}, {}
+    for label in SHARDED_RUNS:
+        ws = os.path.join(out_dir, label)
+        ranks = par["records"][label]
+        if not all(r["backend"] == "gloo" and r["world"] == 2 and r["plan"] for r in ranks):
+            raise AssertionError(f"{label}: not a 2-rank gloo job on a mesh {ranks}")
+        state = [r["state_bytes"] for r in ranks]
+        if not all(b["resident"] == b["table"] < b["replicated"] for b in state):
+            raise AssertionError(f"{label}: resident bytes {state} are not the table's "
+                                 "placement_bytes below the replicated figure")
+        losses = loss_gaps(train_log(ws), train_log(data2_ws))
+        gap = grad_gap(torch.load(os.path.join(out_dir, f"{label}.grads.pt")), data2_grads,
+                       top=3)
+        if losses[0] > 1e-4 or gap["rel_l2"] > 0.05:
+            raise AssertionError(f"{label}: first step's loss dict {losses[0]} (rtol 1e-4) or "
+                                 f"gradient {gap['rel_l2']} (5 %) from the data=2 run's")
+        row = {"seconds": ranks[0]["seconds"], "mesh": ranks[0]["mesh"], "state_bytes": state,
+               "state_ratio": [b["resident"] / b["replicated"] for b in state],
+               "loss_gaps_vs_data2": losses, "grad_gap_vs_data2": gap,
+               "grad_norms": [ln["grad_norm"] for ln in train_log(ws)],
+               "step_ms": [r["step_ms"] for r in ranks],
+               "peak_allocated_gb": [r["peak_allocated_gb"] for r in ranks],
+               "launches": [r["launches"] for r in ranks]}
+        if not all(r["launches"]["warp_bilinear"] and r["launches"]["warp_bilinear_grad"]
+                   for r in ranks):
+            raise AssertionError(f"{label}: K1 or K2 never launched {row['launches']}")
+        results[label] = row
+        emit(info, phase="sharded_state", path=label, **row)
+        launches[f"sharded_{label}"] = rank_launches(ranks)
+    # the fsdp=2 run's step-2 checkpoint (gathered on save) resumes in one
+    # process, replicated, for one step
+    ws = os.path.join(out_dir, "fsdp2_fp32")
+    cfg = load_config(DEFAULT_CONFIG, overrides={**RANK_FP32, "data.per_gpu_batch_size": 4})
+    t = time.perf_counter()
+    tr = Trainer(cfg, ws)
+    logged = tr.fit(build_dataset(cfg, "train", tr.global_batch), max_steps=SHARDED_STEPS + 1)
+    resumed = train_log(ws)[-1]
+    if resumed["global_step"] != SHARDED_STEPS + 1 or not math.isfinite(logged["loss"]):
+        raise AssertionError(f"fsdp=2 checkpoint resume: {resumed}")
+    emit(info, phase="sharded_state", path="fsdp2_checkpoint_resume_one_process",
+         resumed_step=resumed["global_step"], loss=logged["loss"],
+         grad_norm=logged["grad_norm"], seconds=time.perf_counter() - t)
+    del tr
+    release_card()
+    emit(info, phase="sharded_state", path="summary", seconds=time.perf_counter() - t_phase,
+         note="the two runs' seconds are their segments of the parallel phase's launch")
+    return {"launches": launches, "results": results}
+
+
+def coarse_to_fine_reference(info) -> dict:
+    """Coarse-to-fine training (mpi.num_bins_fine = C2F_FINE, 64 planes) in
+    fp32 at B=2, two dense steps in one process, before the parallel
+    phase's launch: their launches (4 K1 and 4 K2 a step: the coarse pass
+    renders without the warp) and peak memory; the plane=2 run's
+    reference."""
+    from mine_tpu_torch.ops.kernels import warp as kw
+
+    release_card()
+    torch.cuda.reset_peak_memory_stats()
+    kw.reset_launches()
+    t = time.perf_counter()
+    ws = one_process_run(PARALLEL_DIR, "c2f_dense_fp32", C2F_OVER, 2)
+    launches = dict(kw.launches)
+    log = train_log(ws)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if len(log) != 2 or not all(math.isfinite(ln["loss"]) for ln in log) \
+            or launches["warp_bilinear"] != 8 or launches["warp_bilinear_grad"] != 8:
+        raise AssertionError(f"coarse-to-fine dense steps: {log}, {launches}")
+    emit(info, phase="coarse_to_fine", path="train_dense", planes=32 + C2F_FINE, batch_size=2,
+         losses=[ln["loss"] for ln in log], grad_norms=[ln["grad_norm"] for ln in log],
+         launches=launches, peak_allocated_gb=peak_gb, seconds=time.perf_counter() - t)
+    return {"log": log, "launches": launches}
+
+
+def coarse_to_fine_train(info, par: dict, ref: dict) -> dict:
+    """The coarse-to-fine run at plane=2 on two gloo ranks sharing the card
+    (a segment of the parallel phase's launch), 2 steps: the first step's
+    loss terms held against the one-process run's at rtol 1e-4. Returns the
+    launches of both runs."""
+    ranks = par["records"]["c2f_plane2_fp32"]
+    ws = os.path.join(par["out_dir"], "c2f_plane2_fp32")
+    losses = loss_gaps(train_log(ws), ref["log"])
+    norms = loss_gaps(train_log(ws), ref["log"], ("grad_norm",))
+    if losses[0] > 1e-4 or not all(r["launches"]["warp_bilinear"] for r in ranks):
+        raise AssertionError(f"coarse-to-fine plane=2: first step's loss dict {losses[0]} from "
+                             f"the one-process run's (rtol 1e-4); launches "
+                             f"{[r['launches'] for r in ranks]}")
+    emit(info, phase="coarse_to_fine", path="train_plane2", mesh=ranks[0]["mesh"],
+         loss_gaps=losses, grad_norm_gaps=norms, step_ms=[r["step_ms"] for r in ranks],
+         peak_allocated_gb=[r["peak_allocated_gb"] for r in ranks],
+         launches=[r["launches"] for r in ranks], seconds=ranks[0]["seconds"])
+    return {"launches": {"c2f_train_dense": resident_launches(ref["launches"]),
+                         "c2f_train_plane2": rank_launches(ranks)}}
+
+
+def coarse_to_fine_serve(info, dev, state: dict, image: np.ndarray, g1: torch.Tensor,
+                         poses: np.ndarray) -> dict:
+    """A coarse-to-fine RenderEngine bucket (the default recipe with
+    mpi.num_bins_fine = C2F_FINE) predicts once and renders `poses`
+    (streaming, K5 at S=64); VideoGenerator renders them dense (K1). The
+    served entry's own inputs at `g1` are K5's S=64 operands, held against
+    its plain version at TOL. Returns the launches and K5's operands."""
+    from mine_tpu_torch.config import Config
+    from mine_tpu_torch.inference.video import VideoGenerator
+    from mine_tpu_torch.ops.geometry import inverse_3x3
+    from mine_tpu_torch.ops.kernels import warp as kw
+    from mine_tpu_torch.ops.mpi_render import streaming_matrices
+    from mine_tpu_torch.serving.engine import RenderEngine
+
+    t_phase = time.perf_counter()
+    cfg = Config().replace(**{"mpi.num_bins_fine": C2F_FINE})
+    planes = cfg.mpi.num_bins_coarse + C2F_FINE
+    h, w = cfg.data.img_h, cfg.data.img_w
+    kw.reset_launches()
+    engine = RenderEngine(cfg, state)
+    entry = engine.predict(image)
+    rgb, disp = engine.render(entry, poses)
+    video = VideoGenerator(cfg.replace(**{"mpi.compositor": "dense"}), state, image)
+    v_rgb, v_disp = video.render_poses(poses)
+    torch.cuda.synchronize()
+    launches = dict(kw.launches)
+    d = entry.disparity
+    if entry.bucket != (h, w, cfg.mpi.num_bins_coarse) or tuple(entry.mpi_rgb.shape) != \
+            (1, planes, h, w, 3) or not bool((d[:, 1:] < d[:, :-1]).all()) \
+            or not np.isfinite(rgb).all() or not np.isfinite(v_rgb).all() \
+            or rgb.shape != (len(poses), h, w, 3):
+        raise AssertionError(f"coarse-to-fine serving: bucket {entry.bucket}, MPI "
+                             f"{tuple(entry.mpi_rgb.shape)}, disparity {d.tolist()}")
+    if launches["warp_composite"] == 0 or launches["warp_bilinear"] != len(poses):
+        raise AssertionError(f"coarse-to-fine serving did not render through K5 and K1 "
+                             f"{launches}")
+    k5_in = (entry.mpi_rgb, entry.mpi_sigma,
+             *streaming_matrices(entry.disparity, g1, inverse_3x3(entry.k), entry.k))
+    k5_err = check_close(f"warp_composite (1,{planes},{h},{w}) coarse-to-fine",
+                         kw.warp_composite(*k5_in), kw.warp_composite_matrix_plain(*k5_in), **TOL)
+    emit(info, phase="coarse_to_fine", path="serve", bucket=list(entry.bucket), planes=planes,
+         disparity_merged_vs_video_max_abs=float((entry.disparity - video.disparity).abs().max()),
+         engine_vs_video_frames_max_abs={"rgb": float(np.abs(rgb - v_rgb).max()),
+                                         "disparity": float(np.abs(disp - v_disp).max())},
+         launches=launches, k5_s64_err=k5_err, tolerance=TOL,
+         seconds=time.perf_counter() - t_phase)
+    del engine, video
+    return {"launches": {"c2f_serve": resident_launches(launches)}, "k5_in": k5_in,
+            "k5_err": k5_err, "k5_launches": launches["warp_composite"]}
 
 
 def main() -> int:
@@ -3016,7 +3322,19 @@ def main() -> int:
 
     # 10. the parallel path: two ranks of a torchrun job sharing the card, run
     # here, while this process holds little of the card's memory
-    par = parallel_phase(info, dev, entries[0], torch.from_numpy(zoom[20])[None].to(dev))
+    import shutil
+
+    g1 = torch.from_numpy(zoom[20])[None].to(dev)
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    os.makedirs(PARALLEL_DIR)
+    # 12. (with 10) the coarse-to-fine one-process reference, then the
+    # parallel phase, whose one torchrun launch also runs section 12's
+    # two-rank training runs; then their checks and coarse-to-fine serving
+    c2f_ref = coarse_to_fine_reference(info)
+    par = parallel_phase(info, dev, entries[0], g1, section12_segments())
+    sharded = sharded_state_phase(info, par)
+    c2f_train = coarse_to_fine_train(info, par, c2f_ref)
+    c2f_serve = coarse_to_fine_serve(info, dev, state, images[0], g1, swing[:4])
 
     # 5. the training path at full width: Trainer.fit on synthetic batches
     from mine_tpu_torch.data.registry import build_dataset
@@ -3232,7 +3550,8 @@ def main() -> int:
          median={k: statistics.median(v) for k, v in spread.items()}, runs=spread,
          share_of_bound=warp_rows["dense"]["bound_ms"] / statistics.median(spread["ms"]))
     paths = {**streaming["launches"], **data_launches, **serve["launches"],
-             **fleet["launches"], **obs["launches"], **par["launches"]}
+             **fleet["launches"], **obs["launches"], **par["launches"],
+             **sharded["launches"], **c2f_train["launches"], **c2f_serve["launches"]}
 
     def launches_of(name: str, size_class: str) -> dict:
         """The launches of `name` at one TPU size class on each main path: the
@@ -3330,6 +3649,28 @@ def main() -> int:
         bound_ms=k5h_row["bound_ms"], bound_by=k5h_row["bound_by"], library_ms=None,
     ))
     del k5h, k5h_out
+    # K5 at S=64 on a coarse-to-fine served entry's inputs (32 + 32 planes)
+    k5c = c2f_serve["k5_in"]
+    k5c_out = kw.warp_composite(*k5c)
+    b_ms, b_by = bound_ms(nbytes(*k5c) + nbytes(k5c_out), k5c[0][..., 0].numel() * 96)
+    k5c_row = dict(
+        shape={"mpi_rgb": list(k5c[0].shape), "mpi_sigma": list(k5c[1].shape)},
+        ms=time_cuda_ms(lambda: kw.warp_composite(*k5c)),
+        plain_ms=time_cuda_ms(lambda: kw.warp_composite_matrix_plain(*k5c), reps=5, inner=1),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes(*k5c, k5c_out),
+        max_abs_err=c2f_serve["k5_err"],
+    )
+    emit(info, phase="timing", kernel="warp_composite", case="coarse_to_fine S=64", **k5c_row)
+    kernels.append(dict(
+        name=f"warp_composite (coarse-to-fine, S={k5c[0].shape[1]})", route="cuda",
+        source="mine_tpu_torch/csrc/warp_composite.cu",
+        replaces="mine_tpu/ops/pallas/warp.py:689", shape=k5c_row["shape"],
+        launches=c2f_serve["k5_launches"],
+        launches_by_path={"c2f_serve": c2f_serve["k5_launches"]},
+        max_abs_err=k5c_row["max_abs_err"], ms=k5c_row["ms"], plain_ms=k5c_row["plain_ms"],
+        bound_ms=k5c_row["bound_ms"], bound_by=k5c_row["bound_by"], library_ms=None,
+    ))
+    del k5c, k5c_out
     # K5 at every plane count the HTTP server ran it at (the pruned plane
     # buckets among them), on the inputs of a real /render at that count
     for s_planes, ops in sorted(serve["k5_inputs"].items()):
@@ -3493,5 +3834,5 @@ def main() -> int:
 
 if __name__ == "__main__":
     if len(sys.argv) > 2 and sys.argv[1] == "--train-rank":
-        sys.exit(train_rank_main(sys.argv[2], sys.argv[3:]))
+        sys.exit(train_rank_main(sys.argv[2]))
     sys.exit(main())

@@ -4,11 +4,9 @@ groups of mine_tpu/config.py's Config, with the same dot-keys and defaults.
 
 Config files are the JAX package's flat dot-key YAML (mine_tpu/configs/*.yaml
 are read as data files). Every group is ported whole; an unknown key is an
-error, as in the JAX loader. Keys the port reads but does not honour yet
-raise where they would take effect (`unsupported_training_options`: the
-fsdp axis, ZeRO-1 and the partition-rule rows; coarse-to-fine; warm starts
-that are not a converted .npz; and the serving engine's coarse-to-fine
-check). `save_config` writes the flat dot-key YAML the loader reads (the
+error, as in the JAX loader. A value the port reads but does not honour yet
+raises where it would take effect (`unsupported_training_options`: a warm
+start that is not a converted .npz). `save_config` writes the flat dot-key YAML the loader reads (the
 workspace's params.yaml), which the JAX loader reads too.
 """
 
@@ -112,9 +110,7 @@ class MeshConfig:
 class ParallelConfig:
     # ZeRO-1 optimizer-state sharding over the batch replicas, the leaf size
     # under which a leaf stays replicated, and extra partition-rule rows
-    # ("pattern = axes") prepended to the JAX package's table
-    # (mine_tpu/parallel/rules.py): read, and refused away from these
-    # defaults until the port shards state (unsupported_training_options)
+    # ("pattern = axes") prepended to the table (parallel/rules.py)
     zero1: bool = False
     zero1_min_size: int = 1024
     rules: tuple[str, ...] = ()
@@ -337,17 +333,4 @@ def unsupported_training_options(cfg: Config) -> list[str]:
         found.append(f"training.pretrained_checkpoint_path={warm!r}: the port warm-starts "
                      "from a converted .npz; other checkpoint formats wait for ROADMAP "
                      "queue 1 item 7")
-    if cfg.mpi.num_bins_fine > 0:
-        found.append("mpi.num_bins_fine > 0 waits for ROADMAP queue 1 item 5 "
-                     "(coarse-to-fine)")
-    if cfg.mesh.fsdp_parallel > 1:
-        found.append(f"mesh.fsdp_parallel={cfg.mesh.fsdp_parallel}: the fsdp axis waits for "
-                     "ROADMAP queue 1 item 6 (slice 10: fsdp, ZeRO-1, parallel/rules.py)")
-    if cfg.parallel.zero1:
-        found.append("parallel.zero1=True: ZeRO-1 waits for ROADMAP queue 1 item 6 "
-                     "(slice 10: fsdp, ZeRO-1, parallel/rules.py)")
-    if cfg.parallel.rules:
-        found.append(f"parallel.rules={list(cfg.parallel.rules)!r}: the partition-rule table "
-                     "waits for ROADMAP queue 1 item 6 (slice 10: fsdp, ZeRO-1, "
-                     "parallel/rules.py)")
     return found

@@ -7,7 +7,11 @@ the val split (counterpart of mine_tpu/evaluate.py).
 The config is the params.yaml the training run archived, with
 --extra_config on top. Prints one JSON line: the step, every metric of the
 loss suite (PSNR, SSIM, LPIPS among them) averaged over the genuine val
-examples, and their count. Runs on the CUDA device unless --device cpu.
+examples, and their count. Runs on the CUDA device unless --device cpu. A
+workspace trained coarse-to-fine (mpi.num_bins_fine > 0) is evaluated
+through the coarse-to-fine forward (training/step.py loss_fcn), its fine
+draws from the eval generator after the disparities. A run trained under a
+sharded layout restores as any other: checkpoints are gathered on save.
 Under torchrun (train.py's flags) each rank evaluates its rows of every val
 batch on the mesh the config names, the means are the whole mesh's, and
 rank 0 prints.
@@ -59,7 +63,8 @@ def main(argv: list[str] | None = None) -> dict[str, float]:
     try:
         if not grouped:
             # one process evaluates alone, whatever mesh the run trained on
-            cfg = cfg.replace(**{"mesh.data_parallel": -1, "mesh.plane_parallel": 1})
+            cfg = cfg.replace(**{"mesh.data_parallel": -1, "mesh.plane_parallel": 1,
+                                 "mesh.fsdp_parallel": 1})
         mesh = make_mesh(cfg.mesh.data_parallel, cfg.mesh.plane_parallel, cfg.mesh.fsdp_parallel)
         plan = make_plan(cfg, mesh) if grouped else None
         device = resolve_device(args.device if args.device or not grouped else rank_device())

@@ -11,7 +11,9 @@ weights are read from it. --weights is the JAX package's flat variables
 .npz (the layout tools/convert_resnet.py and tools/convert_mine_checkpoint.py
 write and mine_tpu/models/pretrained.py reads), with its --config;
 models/convert.py carries it across. The run is on the CUDA device unless
---device cpu is given.
+--device cpu is given. A config with mpi.num_bins_fine > 0 predicts
+coarse-to-fine (inference/video.py predict_blended_mpi_c2f: two passes, the
+fine draws from a generator seeded 1) and renders the merged planes.
 """
 
 from __future__ import annotations

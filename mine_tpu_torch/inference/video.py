@@ -22,6 +22,7 @@ from mine_tpu_torch.inference.trajectory import camera_trajectories
 from mine_tpu_torch.ops.geometry import inverse_3x3
 from mine_tpu_torch.ops.mpi_render import render_src
 from mine_tpu_torch.training.step import (
+    forward_coarse_to_fine,
     build_model,
     make_disparity_list,
     predict_mpis,
@@ -65,13 +66,43 @@ def predict_blended_mpi(cfg: Config, model: torch.nn.Module, img: torch.Tensor,
     source pixels wherever the source view sees them. Returns (mpi_rgb,
     mpi_sigma), (B, S, H, W, 3) and (B, S, H, W, 1), both contiguous: the
     streaming compositor's kernel reads them in place for every frame."""
-    mpi = predict_mpis(cfg, model, img, disparity)[0]
+    return _blend_src_rgb(cfg, img, predict_mpis(cfg, model, img, disparity)[0], disparity, k)
+
+
+def _blend_src_rgb(cfg: Config, img, mpi, disparity, k):
+    """Scale-0 MPI -> (blended mpi_rgb, contiguous mpi_sigma)."""
     mpi_rgb, mpi_sigma = mpi[..., 0:3], mpi[..., 3:4].contiguous()
     _, _, blend_weights, _ = render_src(
         mpi_rgb, mpi_sigma, disparity, inverse_3x3(k),
         use_alpha=cfg.mpi.use_alpha, is_bg_depth_inf=cfg.mpi.is_bg_depth_inf,
     )
     return blend_weights * img[:, None] + (1.0 - blend_weights) * mpi_rgb, mpi_sigma
+
+
+# the fine draws of a coarse-to-fine predict: the counterpart of the JAX
+# package's PRNGKey(1) (the numbers differ between the frameworks)
+FINE_SEED = 1
+
+
+@torch.no_grad()
+def predict_blended_mpi_c2f(cfg: Config, model: torch.nn.Module, img: torch.Tensor,
+                            k: torch.Tensor, fine_u: torch.Tensor | None = None):
+    """Coarse-to-fine predict (mpi.num_bins_fine > 0): the fixed coarse
+    disparities, two network passes through forward_coarse_to_fine with the
+    fine draws `fine_u` (B, 1, S_fine) or, when None, drawn from a generator
+    seeded FINE_SEED, then source-RGB blending at the merged planes. Returns
+    (mpi_rgb, mpi_sigma, merged disparity (B, S_coarse + S_fine)): render
+    with the returned disparity."""
+    fixed = cfg.replace(**{"mpi.fix_disparity": True})
+    b = img.shape[0]
+    disparity = make_disparity_list(fixed, b, img.device)
+    if fine_u is None:
+        fine_u = torch.rand((b, 1, cfg.mpi.num_bins_fine),
+                            generator=torch.Generator().manual_seed(FINE_SEED))
+    mpis, disparity = forward_coarse_to_fine(fixed, model, img, inverse_3x3(k), disparity,
+                                             fine_u=fine_u)
+    mpi_rgb, mpi_sigma = _blend_src_rgb(cfg, img, mpis[0], disparity, k)
+    return mpi_rgb, mpi_sigma, disparity
 
 
 @torch.no_grad()
@@ -148,13 +179,14 @@ class VideoGenerator:
 
     state_dict: MPINetwork weights (models/convert.py carries the JAX
     package's across). device None means CUDA, which must be present; pass
-    "cpu" to run the plain versions on the CPU."""
+    "cpu" to run the plain versions on the CPU. With mpi.num_bins_fine > 0
+    the predict is coarse-to-fine (predict_blended_mpi_c2f, its fine draws
+    `fine_u` or seeded) and every render uses the merged disparities."""
 
     def __init__(self, cfg: Config, state_dict: Mapping[str, torch.Tensor],
                  image: np.ndarray, fov_deg: float = 90.0,
-                 device: torch.device | str | None = None):
-        if cfg.mpi.num_bins_fine > 0:
-            raise NotImplementedError("coarse-to-fine predict is not ported yet")
+                 device: torch.device | str | None = None,
+                 fine_u: torch.Tensor | None = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         h, w = cfg.data.img_h, cfg.data.img_w
@@ -163,6 +195,10 @@ class VideoGenerator:
         model.to(self.device)
         self.img = prepare_image(image, h, w, self.device)
         self.k = torch.from_numpy(fov_intrinsics(h, w, fov_deg))[None].to(self.device)
+        if cfg.mpi.num_bins_fine > 0:
+            self.mpi_rgb, self.mpi_sigma, self.disparity = predict_blended_mpi_c2f(
+                cfg, model, self.img, self.k, fine_u)
+            return
         fixed_cfg = cfg.replace(**{"mpi.fix_disparity": True})
         self.disparity = make_disparity_list(fixed_cfg, 1, self.device)
         self.mpi_rgb, self.mpi_sigma = predict_blended_mpi(

@@ -1,5 +1,7 @@
 """The MPI prediction network: ResNet encoder + disparity-conditioned decoder
-(counterpart of mine_tpu/models/mpi.py::MPINetwork).
+(counterpart of mine_tpu/models/mpi.py::MPINetwork), and the coarse-to-fine
+plane placement around it (predict_mpi_coarse_to_fine,
+merge_fine_disparity).
 
 State-dict layout: `backbone.encoder.<torchvision names>` and
 `decoder.<reference DepthDecoder names>`, the two halves of a reference MINE
@@ -9,6 +11,7 @@ checkpoint under one module. Input H and W must be multiples of 128.
 from __future__ import annotations
 
 import math
+from typing import Callable
 
 import torch
 from torch import nn
@@ -16,6 +19,8 @@ from torch import nn
 from mine_tpu_torch.models.decoder import MPIDecoder, run_checkpointed
 from mine_tpu_torch.obs.attrib import scope
 from mine_tpu_torch.models.encoder import ResNetEncoder
+from mine_tpu_torch.ops.mpi_render import plane_volume_rendering
+from mine_tpu_torch.ops.sampling import sample_pdf
 
 
 class MPINetwork(nn.Module):
@@ -52,6 +57,44 @@ class MPINetwork(nn.Module):
             features = run_checkpointed(self.remat, self.backbone, src_imgs)
         with scope("decoder"):
             return self.decoder(features, disparity, sigma_keep, remat=self.remat)
+
+
+def merge_fine_disparity(disparity_coarse: torch.Tensor, w: torch.Tensor, s_fine: int,
+                         generator: torch.Generator | None = None,
+                         u: torch.Tensor | None = None) -> torch.Tensor:
+    """(B, S) coarse disparities + (B, S) per-plane weights -> the (B, S +
+    s_fine) merged list: s_fine draws from the weights' PDF (sample_pdf, its
+    uniforms `u` (B, 1, s_fine) or drawn from `generator`) joined to the
+    coarse list, sorted descending (the compositing order), with no
+    gradient. The plane-sharded path gathers `w` and must merge
+    identically."""
+    fine = sample_pdf(disparity_coarse[:, None, :], w.detach()[:, None, :], s_fine,
+                      generator, u)[:, 0, :]
+    merged = torch.cat([disparity_coarse, fine], dim=1)
+    return torch.sort(merged, dim=1, descending=True).values.detach()
+
+
+def predict_mpi_coarse_to_fine(predictor: Callable[[torch.Tensor, torch.Tensor], dict],
+                               src_imgs: torch.Tensor, xyz_src_coarse: torch.Tensor,
+                               disparity_coarse: torch.Tensor, s_fine: int,
+                               generator: torch.Generator | None = None,
+                               u: torch.Tensor | None = None,
+                               is_bg_depth_inf: bool = False):
+    """Refine plane placement with a second pass: a coarse pass without
+    gradient gives per-plane compositing weights (their mean over pixels),
+    whose PDF is sampled for s_fine more disparities, and the predictor runs
+    again on the sorted union. Returns (mpis, merged disparity); with
+    s_fine 0 one pass on the coarse list. The predictor runs in the model's
+    mode: in train mode both passes move the BatchNorm statistics."""
+    if s_fine <= 0:
+        return predictor(src_imgs, disparity_coarse), disparity_coarse
+    with torch.no_grad():
+        mpi0 = predictor(src_imgs, disparity_coarse)[0]
+        _, _, _, weights = plane_volume_rendering(mpi0[..., 0:3], mpi0[..., 3:4],
+                                                  xyz_src_coarse, is_bg_depth_inf)
+    w = torch.mean(weights, dim=(2, 3, 4))  # (B, S)
+    disparity_all = merge_fine_disparity(disparity_coarse, w, s_fine, generator, u)
+    return predictor(src_imgs, disparity_all), disparity_all
 
 
 @torch.no_grad()

@@ -61,6 +61,15 @@ def homogeneous_pixel_grid(height: int, width: int,
     return torch.stack([x, y, torch.ones_like(x)], dim=-1)
 
 
+def src_xyz_from_plane_disparity(mpi_disparity: torch.Tensor, k_inv: torch.Tensor,
+                                 height: int, width: int) -> torch.Tensor:
+    """Per-plane source-frame xyz of every pixel: depth * K^-1 [x, y, 1].
+    mpi_disparity (B, S), k_inv (B, 3, 3) -> (B, S, H, W, 3)."""
+    grid = homogeneous_pixel_grid(height, width, k_inv.device)
+    rays = apply_3x3(k_inv, grid[..., 0], grid[..., 1])  # (B, H, W, 3)
+    return rays[:, None] * (1.0 / mpi_disparity)[:, :, None, None, None]
+
+
 def scale_intrinsics(k: torch.Tensor, scale: int) -> torch.Tensor:
     """Divide K by 2**scale, keeping K[2,2] = 1 (the loss pyramid's
     intrinsics at scale `scale`)."""

@@ -2,5 +2,5 @@
 (counterpart of mine_tpu/parallel/): the mesh and the process group
 (mesh.py), the collectives and their backward rules (comm.py), plane-sharded
 compositing (plane_sharding.py) and the step's plan on a mesh
-(data_parallel.py). The fsdp axis, ZeRO-1 and the partition-rule table are
-not ported yet (config.unsupported_training_options)."""
+(data_parallel.py), and the partition-rule table that lays out sharded
+training state over the fsdp axis and ZeRO-1 (rules.py)."""

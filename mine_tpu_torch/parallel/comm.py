@@ -23,6 +23,9 @@ Three backward rules, and why each:
     transmittance prefix, the halo plane). Rank j's slot receives the sum
     over ranks of their cotangents for it: an all_reduce of the stacked
     cotangent, then the rank's own slot (a reduce-scatter out of all_reduce).
+    `gather_dim` is the same gather concatenated along a dimension (the
+    FSDP parameter gather, the ZeRO-1 update gather, the plane-sharded
+    coarse-to-fine weights), with the same backward.
 """
 
 from __future__ import annotations
@@ -80,6 +83,21 @@ class _AllGather(torch.autograd.Function):
         return _all_reduce(g, ctx.group)[dist.get_rank(ctx.group)], None
 
 
+class _GatherDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.size = group, dim, x.shape[dim]
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x, group=group)
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        start = dist.get_rank(ctx.group) * ctx.size
+        return _all_reduce(g, ctx.group).narrow(ctx.dim, start, ctx.size), None, None
+
+
 def all_reduce_replicated(x: torch.Tensor, group) -> torch.Tensor:
     """Sum over the group; the backward passes the local cotangent."""
     return x if group is None else _AllReduceReplicated.apply(x, group)
@@ -94,6 +112,13 @@ def all_gather(x: torch.Tensor, group) -> torch.Tensor:
     """(...) -> (n, ...), slot i from the group's rank i; the backward
     reduce-scatters the cotangents."""
     return x[None] if group is None else _AllGather.apply(x, group)
+
+
+def gather_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The group's shards of a tensor concatenated along `dim`, in group
+    rank order; the backward sums the cotangents over the group and keeps
+    this rank's block."""
+    return x if group is None else _GatherDim.apply(x, group, dim)
 
 
 @torch.no_grad()

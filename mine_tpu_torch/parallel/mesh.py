@@ -6,8 +6,8 @@ three axes, row-major over the ranks (data outermost, plane innermost):
 
   data  - batch sharding: each data coordinate owns a contiguous block of
           the global batch rows (DDP data parallel);
-  fsdp  - parameter sharding; refused until the port shards state
-          (config.unsupported_training_options), so always 1 here;
+  fsdp  - parameter sharding (the partition-rule table's kernel rows,
+          parallel/rules.py); batches shard their rows over data x fsdp;
   plane - MPI plane (S) sharding: each plane coordinate runs the decoder
           and the renderer on its contiguous block of planes.
 
@@ -171,6 +171,9 @@ class Mesh:
     shape: dict
     rank: int
     device_mesh: Any = None
+    # the data x fsdp group of this rank's plane coordinate, when both
+    # axes are wider than 1 (else the wider axis's own group serves)
+    batch_pg: Any = None
 
     def coordinate(self, axis: str) -> int:
         """This rank's index along `axis` (row-major, plane innermost)."""
@@ -189,8 +192,17 @@ class Mesh:
 
     @property
     def batch_group(self):
-        """The ranks one logical batch spans (data x fsdp; fsdp is 1)."""
-        return self.group(DATA_AXIS)
+        """The ranks one logical batch spans: data x fsdp, ordered
+        data-major (the group rank is batch_index)."""
+        if self.batch_pg is not None:
+            return self.batch_pg
+        return self.group(FSDP_AXIS if self.shape[DATA_AXIS] <= 1 else DATA_AXIS)
+
+    @property
+    def batch_index(self) -> int:
+        """This rank's index among the batch replicas, data-major:
+        data coordinate x fsdp size + fsdp coordinate."""
+        return self.coordinate(DATA_AXIS) * self.shape[FSDP_AXIS] + self.coordinate(FSDP_AXIS)
 
     @property
     def world_group(self):
@@ -232,7 +244,16 @@ def make_mesh(data_parallel: int = -1, plane_parallel: int = 1,
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     device_mesh = init_device_mesh(device_type, (data_parallel, fsdp_parallel, plane_parallel),
                                    mesh_dim_names=AXIS_NAMES)
-    return Mesh(shape, dist.get_rank(), device_mesh)
+    batch_pg = None
+    if data_parallel > 1 and fsdp_parallel > 1:
+        # one data x fsdp group per plane coordinate; every rank makes
+        # every group, in the same order
+        for p in range(plane_parallel):
+            ranks = list(range(p, n, plane_parallel))
+            pg = dist.new_group(ranks)
+            if dist.get_rank() in ranks:
+                batch_pg = pg
+    return Mesh(shape, dist.get_rank(), device_mesh, batch_pg)
 
 
 def data_replica_count(mesh: Mesh) -> int:
@@ -259,8 +280,7 @@ def host_batch_slice(mesh: Mesh, global_rows: int) -> tuple[int, int]:
             f"global batch {global_rows} does not split evenly over "
             f"{n} processes (this host owns {count} rows)"
         )
-    replica = mesh.coordinate(DATA_AXIS) * mesh.shape[FSDP_AXIS] + mesh.coordinate(FSDP_AXIS)
-    return replica * count, count
+    return mesh.batch_index * count, count
 
 
 def shard_batch(mesh: Mesh, batch: dict, device: str | torch.device,

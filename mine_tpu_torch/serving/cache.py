@@ -23,8 +23,8 @@ from typing import Any
 import torch
 
 # (image_digest, checkpoint_step, H, W, S, tier): S is the engine bucket's
-# plane count, tier the compression tier the entry is stored at
-# ("fp32"|"bf16"|"int8")
+# coarse plane count (a coarse-to-fine entry holds S + S_fine planes), tier
+# the compression tier the entry is stored at ("fp32"|"bf16"|"int8")
 CacheKey = tuple[str, int, int, int, int, str]
 
 
@@ -63,7 +63,8 @@ def _nbytes(t: torch.Tensor) -> int:
 @dataclass
 class MPIEntry:
     """One cached prediction: everything render-many needs, device-resident.
-    The disparities travel with the planes they were predicted at."""
+    The disparities travel with the planes they were predicted at: a
+    coarse-to-fine predict renders at its own merged list."""
 
     mpi_rgb: torch.Tensor  # (1, S, H, W, 3)
     mpi_sigma: torch.Tensor  # (1, S, H, W, 1)

@@ -78,7 +78,8 @@ class CompressedMPI:
     or bf16 directly, int8 beside per-plane (lo, scale) fp32 pairs.
     disparity is the SURVIVING planes' (1, S_kept). bucket is the engine
     shape bucket (H, W, S) the entry was predicted under; num_planes_full is
-    the unpruned plane count.
+    the unpruned plane count (S + S_fine for a coarse-to-fine bucket, whose
+    key keeps the coarse S), carried by the wire header.
     """
 
     tier: str

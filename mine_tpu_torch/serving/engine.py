@@ -2,7 +2,10 @@
 port's counterpart of mine_tpu/serving/engine.py).
 
   * shape buckets (H, W, S): each holds its intrinsics and fixed plane
-    disparities; a predict resizes the image to its bucket;
+    disparities; a predict resizes the image to its bucket. Under a
+    coarse-to-fine config (mpi.num_bins_fine > 0) S stays the coarse count
+    (the key), a predict runs the two passes and its entry carries its own
+    S + S_fine merged disparities, which every render uses;
   * pose-count buckets (powers of two): a render of N poses runs on poses
     padded with identities up to the next bucket and returns the first N
     frames; N past the largest bucket goes in largest-bucket chunks;
@@ -72,6 +75,7 @@ from mine_tpu_torch.config import Config
 from mine_tpu_torch.inference.video import (
     fov_intrinsics,
     predict_blended_mpi,
+    predict_blended_mpi_c2f,
     prepare_image,
     render_many,
 )
@@ -119,7 +123,10 @@ class WeightSet:
 
 class _Bucket:
     """One (H, W, S) shape bucket: its config, intrinsics, disparities, plane
-    buckets and which of its dispatches have run once."""
+    buckets and which of its dispatches have run once. S is the coarse plane
+    count (the bucket's key); a coarse-to-fine config (mpi.num_bins_fine > 0)
+    predicts through predict_blended_mpi_c2f and renders num_planes = S +
+    S_fine planes at each entry's own merged disparities."""
 
     def __init__(self, engine: "RenderEngine", spec: BucketSpec):
         h, w, s = spec
@@ -128,15 +135,21 @@ class _Bucket:
             "data.img_h": h, "data.img_w": w, "mpi.num_bins_coarse": s,
             "mpi.compositor": engine.compositor,
         })
-        self.num_planes = s
+        self.is_c2f = self.cfg.mpi.num_bins_fine > 0
+        self.num_planes = s + (self.cfg.mpi.num_bins_fine if self.is_c2f else 0)
         fixed = self.cfg.replace(**{"mpi.fix_disparity": True})
         self.disparity = make_disparity_list(fixed, 1, engine.device)
+        # the warm-ups' render planes: num_planes fixed disparities
+        self.warm_disparity = make_disparity_list(
+            fixed.replace(**{"mpi.num_bins_coarse": self.num_planes, "mpi.disparity_list": ()}),
+            1, engine.device)
         self.k = torch.from_numpy(fov_intrinsics(h, w, engine.fov_deg))[None].to(
             engine.device
         )
         # pruned entries render at powers of two under S, or S itself
+        n = self.num_planes
         self.plane_buckets: tuple[int, ...] = tuple(sorted(
-            {s} | {1 << p for p in range(1, s.bit_length()) if (1 << p) < s}
+            {n} | {1 << p for p in range(1, n.bit_length()) if (1 << p) < n}
         ))
         self.predict_warm = False  # guarded-by: engine._warm_lock
         # the predict's counted cost, set by its first predict
@@ -167,8 +180,6 @@ class RenderEngine:
         tracer: Tracer | None = None,
         peak_flops_override: float = 0.0,
     ):
-        if cfg.mpi.num_bins_fine > 0:
-            raise NotImplementedError("coarse-to-fine predict is not ported yet")
         self.device = resolve_device(device)
         # what mine_serve_mfu divides by: the override, else the card's row
         self.peak_flops = resolve_peak_flops(self.device, peak_flops_override)
@@ -366,6 +377,10 @@ class RenderEngine:
         swap's verify."""
         h, w, _ = bucket.spec
         img = prepare_image(image, h, w, self.device)
+        if bucket.is_c2f:
+            out = predict_blended_mpi_c2f(bucket.cfg, model, img, bucket.k)
+            self._first_dispatch(bucket, "predict", None)
+            return out
         mpi_rgb, mpi_sigma = predict_blended_mpi(bucket.cfg, model, img, bucket.disparity,
                                                  bucket.k)
         self._first_dispatch(bucket, "predict", None)
@@ -461,7 +476,7 @@ class RenderEngine:
         bad = {name: (tuple(arrays[name].shape), str(arrays[name].dtype))
                for name, spec in want.items()
                if (tuple(arrays[name].shape), arrays[name].dtype) != spec}
-        if bad or full != s or not 1 <= kept <= full:
+        if bad or full != self.bucket((h, w, s)).num_planes or not 1 <= kept <= full:
             raise ValueError(f"a {tier} entry for bucket {(h, w, s)} ({kept} of {full} "
                              f"planes) has fields {bad or 'that fit'}")
         with self.tracer.span("adopt_entry", cat="serve", request_id=request_id):
@@ -546,7 +561,7 @@ class RenderEngine:
             h, w, s = bucket.spec
             if not bucket.predict_warm:
                 self._predict_pass(bucket, np.zeros((h, w, 3), np.float32), self.model)
-            plane_counts = bucket.plane_buckets if self.prune_eps else (s,)
+            plane_counts = bucket.plane_buckets if self.prune_eps else (bucket.num_planes,)
             for n_poses in sorted({self._pose_bucket(n) for n in (
                     pose_counts if pose_counts is not None else self.pose_buckets)}):
                 poses = np.broadcast_to(_IDENTITY_POSE, (n_poses, 4, 4)).copy()
@@ -556,7 +571,7 @@ class RenderEngine:
                     zeros = torch.zeros((1, n_planes, h, w, 4), device=self.device)
                     self._dispatch_render(bucket, zeros[..., :3].contiguous(),
                                           zeros[..., 3:].contiguous(),
-                                          bucket.disparity[:, :n_planes], bucket.k, poses)
+                                          bucket.warm_disparity[:, :n_planes], bucket.k, poses)
         return self.compiles - before
 
     def warm_pool(self) -> dict[str, dict]:

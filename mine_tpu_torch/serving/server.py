@@ -637,6 +637,8 @@ class ServingApp:
                                          f"for key bucket {key[2:5]}")
                     # drift the key does not fence: another full plane count,
                     # or a pruned entry where this replica does not prune
+                    # the key's S is the coarse count: a coarse-to-fine
+                    # bucket's entries hold S + S_fine planes
                     full = self.engine.bucket(key[2:5]).num_planes
                     if isinstance(entry, CompressedMPI):
                         drifted = (entry.tier != key[5] or entry.num_planes_full != full

@@ -23,7 +23,9 @@ Over several processes, one a device, launch it with torchrun:
 
 Each rank joins the process group (resilience/multihost.py bring_up,
 resilience.multihost_bringup_attempts and _backoff_s), trains on the mesh
-mesh.data_parallel x mesh.plane_parallel (parallel/), on cuda:{LOCAL_RANK}
+mesh.data_parallel x mesh.fsdp_parallel x mesh.plane_parallel (parallel/),
+its state laid out by the partition-rule table when mesh.fsdp_parallel > 1
+or parallel.zero1 is on (parallel/rules.py), on cuda:{LOCAL_RANK}
 unless --device names its device (two ranks sharing one card pass --device
 cuda:0 with --dist-backend gloo: NCCL puts one rank on a device). Only rank 0
 writes the workspace; resilience.multihost_watchdog_s arms the cross-host

@@ -34,7 +34,15 @@ from a loader built with `host_slice`, its planes under plane sharding, and
 the step's collectives (parallel/data_parallel.py). Rank 0's weights are
 broadcast at the start; every rank restores the same checkpoint; only rank
 0 writes checkpoints, params.yaml, train.log, metrics.jsonl and the jsonl
-logs. Multi-process survival (resilience/multihost.py): each rank beats a
+logs. Under a sharded state layout (mesh.fsdp_parallel > 1, or
+parallel.zero1 over more than one batch replica; parallel/rules.py) each
+rank holds its shards of the parameters and Adam moments between steps:
+`distribute_state` places the full state (first placement, warm start,
+restore) and a checkpoint gathers it on every rank before rank 0 writes it,
+so that checkpoints are layout-free. The preemption save and the emergency
+checkpoint, which run on one rank outside the step's collective order, are
+skipped under a sharded layout on more than one rank (the interval
+checkpoints remain). Multi-process survival (resilience/multihost.py): each rank beats a
 heartbeat file at its log intervals, a watchdog turns a dead or wedged peer
 into a named abort (exit code 83), and the `host_kill`/`host_stall` chaos
 seams fire after a step.
@@ -65,7 +73,14 @@ from mine_tpu_torch.obs.flight import FlightRecorder
 from mine_tpu_torch.obs.ledger import set_build_info
 from mine_tpu_torch.obs.memlog import MemLog
 from mine_tpu_torch.obs.trace import Tracer
-from mine_tpu_torch.parallel.data_parallel import broadcast_state, make_plan, model_groups
+from mine_tpu_torch.parallel.data_parallel import (
+    distribute_state,
+    gathered_state,
+    load_full_params,
+    make_plan,
+    model_groups,
+    with_layout,
+)
 from mine_tpu_torch.parallel.mesh import (
     data_replica_count,
     host_batch_slice,
@@ -340,6 +355,13 @@ class Trainer:
         else:
             model.load_state_dict(state_dict)
         self.model = model.to(self.device).train()
+        if self.plan is not None:
+            # the partition-rule table's layout of this model (None: replicated)
+            self.plan = with_layout(self.plan, cfg, self.model)
+        # the step of the checkpoint this trainer last wrote or restored: under
+        # a sharded layout every rank decides from it whether to save (a
+        # collective), never from a file rank 0 may not have finished writing
+        self._saved_step: int | None = None
         self.generator = torch.Generator().manual_seed(cfg.training.seed)
         self.dropout_generator = torch.Generator().manual_seed(cfg.training.seed + 1)
         self.batch_size = cfg.data.per_gpu_batch_size
@@ -353,11 +375,18 @@ class Trainer:
 
     # -- state ----------------------------------------------------------------
 
+    @property
+    def layout(self):
+        """The sharded state layout (parallel/rules.py TorchLayout), or None."""
+        return None if self.plan is None else self.plan.layout
+
     def state(self) -> dict[str, Any]:
-        """The training state a checkpoint holds."""
+        """The training state a checkpoint holds, at full shape whatever the
+        layout (under a sharded one a collective: every rank calls it)."""
+        model_sd, opt_sd = gathered_state(self.model, self.optimizer, self.layout, self.mesh)
         return {
-            "model": self.model.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
+            "model": model_sd,
+            "optimizer": opt_sd,
             "scheduler": self.scheduler.state_dict(),
             "global_step": self.global_step,
             "generators": {"disparity": self.generator.get_state(),
@@ -365,20 +394,47 @@ class Trainer:
         }
 
     def load_state(self, state: Mapping[str, Any]) -> None:
+        """Restore a (layout-free) checkpoint's state into the live layout."""
+        if self.layout is not None:
+            load_full_params(self.model, state["model"])
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
         self.scheduler.load_state_dict(state["scheduler"])
         self.global_step = int(state["global_step"])
         self.generator.set_state(state["generators"]["disparity"])
         self.dropout_generator.set_state(state["generators"]["dropout"])
+        if self.plan is not None:
+            distribute_state(self.model, self.optimizer, self.mesh, self.layout)
+        self._saved_step = self.global_step
+
+    def full_state_dict(self) -> dict[str, torch.Tensor]:
+        """The model's state dict at full shape (a collective under a
+        sharded layout)."""
+        return gathered_state(self.model, None, self.layout, self.mesh)[0]
+
+    def _sharded_ranks(self) -> bool:
+        return self.layout is not None and process_count() > 1
 
     def save_checkpoint(self) -> None:
-        """Rank 0 writes; the other ranks hold the same state."""
+        """Rank 0 writes; the other ranks hold the same state. Under a
+        sharded layout every rank gathers first."""
+        self._saved_step = self.global_step
+        if not self.is_main and self.layout is None:
+            return
+        state = self.state()
         if not self.is_main:
             return
         cfg = self.cfg.training
-        ckpt.save(self.workspace, self.state(), self.global_step,
+        ckpt.save(self.workspace, state, self.global_step,
                   keep_period=max(cfg.eval_interval // cfg.checkpoint_interval, 1))
+
+    def _has_checkpoint(self, step: int) -> bool:
+        """Whether `step` is saved: under a sharded layout on several ranks
+        this trainer's own record (every rank agrees on it), else the
+        workspace."""
+        if self._sharded_ranks():
+            return step == self._saved_step
+        return step in ckpt.all_steps(self.workspace)
 
     def _mark_last_good(self, step: int) -> None:
         if self.is_main:
@@ -423,7 +479,7 @@ class Trainer:
         elif cfg.model.imagenet_pretrained and cfg.model.pretrained_backbone_path:
             self._warm_start(cfg.model.pretrained_backbone_path, ("backbone",))
         if self.plan is not None:
-            broadcast_state(self.model, self.mesh)
+            distribute_state(self.model, self.optimizer, self.mesh, self.layout)
         return 0
 
     # -- steps ----------------------------------------------------------------
@@ -476,6 +532,10 @@ class Trainer:
         vets the step (vet() never raises: a bad verdict waits for the next
         check())."""
         if not self.workspace or self.optimizer is None or not self.is_main:
+            return
+        if self._sharded_ranks():
+            logger.warning("preemption save skipped: a sharded layout gathers its checkpoint "
+                           "on every rank, outside this one rank's signal handler")
             return
         step = self.global_step
         logger.warning("preemption save (%s): persisting step %d", reason, step)
@@ -642,7 +702,10 @@ class Trainer:
             # persist the last completed step so that the next run resumes;
             # a failing save must not mask the original error
             try:
-                if self.workspace and self.global_step not in ckpt.all_steps(self.workspace):
+                if self._sharded_ranks():
+                    logger.exception("training interrupted at step %d; no emergency checkpoint "
+                                     "under a sharded layout on several ranks", self.global_step)
+                elif self.workspace and self.global_step not in ckpt.all_steps(self.workspace):
                     logger.exception("training interrupted at step %d; writing an emergency "
                                      "checkpoint", self.global_step)
                     self.save_checkpoint()
@@ -694,8 +757,6 @@ class Trainer:
                 except FileNotFoundError as exc:
                     raise SentinelAbort(f"rollback impossible ({exc}); trip: {trip}") from trip
                 self.load_state(ckpt.load(self.workspace, start))
-                if self.plan is not None:
-                    broadcast_state(self.model, self.mesh)
                 logger.warning("sentinel rollback #%d (%s): restored last-good step %d",
                                rollbacks, trip, start)
                 self.sentinel.reset_after_rollback()
@@ -854,7 +915,7 @@ class Trainer:
             # a resumed run, or one that stopped on a checkpoint step, may
             # hold this step already
             with tracer.span("ckpt", cat="train", step=self.global_step), self._deferring():
-                if self.global_step not in ckpt.all_steps(self.workspace):
+                if not self._has_checkpoint(self.global_step):
                     self.save_checkpoint()
                 self._mark_last_good(self.global_step)
         if self.writer is not None:

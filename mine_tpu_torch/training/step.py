@@ -2,9 +2,11 @@
 the backward and the optimizer update (counterpart of
 mine_tpu/training/step.py): gradient accumulation over micro-batches, the
 sentinel's skip of a non-finite update, and the eval step's per-example
-metrics weighted by `eval_weight`. With a `plan`
+metrics weighted by `eval_weight`. With mpi.num_bins_fine > 0 the forward
+is coarse-to-fine (forward_coarse_to_fine). With a `plan`
 (parallel/data_parallel.py) the same steps run as one rank of a mesh: its
-rows of the batch, its planes of the MPI, and the step's collectives.
+rows of the batch, its planes of the MPI, the step's collectives, and, under
+a sharded state layout, the FSDP gather and the sharded Adam update.
 
 Batch contract (the JAX package's): src_img, tgt_img (B, H, W, 3) fp32 in
 [0, 1]; k_src, k_tgt (B, 3, 3); g_tgt_src (B, 4, 4) source-to-target rigid
@@ -23,9 +25,9 @@ from mine_tpu_torch.losses.lpips import lpips
 from mine_tpu_torch.losses.metrics import compute_scale_factor, log_disparity_loss, psnr
 from mine_tpu_torch.losses.smoothness import edge_aware_loss, edge_aware_loss_v2
 from mine_tpu_torch.losses.ssim import ssim
-from mine_tpu_torch.models.mpi import MPINetwork
+from mine_tpu_torch.models.mpi import MPINetwork, merge_fine_disparity, predict_mpi_coarse_to_fine
 from mine_tpu_torch.obs.attrib import scope
-from mine_tpu_torch.ops.geometry import inverse_3x3, scale_intrinsics
+from mine_tpu_torch.ops.geometry import inverse_3x3, scale_intrinsics, src_xyz_from_plane_disparity
 from mine_tpu_torch.ops.mpi_render import compositor_from_config
 from mine_tpu_torch.ops.sampling import (
     fixed_disparity_linspace,
@@ -94,16 +96,18 @@ def make_disparity_list(cfg: Config, batch_size: int,
 
 
 def sigma_keep_masks(cfg: Config, model: MPINetwork, disparity: torch.Tensor,
-                     generator: torch.Generator | None) -> torch.Tensor | None:
+                     generator: torch.Generator | None,
+                     planes: int | None = None) -> torch.Tensor | None:
     """The decoder's sigma dropout masks for the (B, S) planes of
-    `disparity`, (n_scales, B, S): one Bernoulli keep (probability
-    1 - mpi.sigma_dropout_rate) per plane and output scale, drawn from
-    `generator` on the CPU. None unless the model is in train mode with a
-    positive rate."""
+    `disparity` (S = `planes` when given), (n_scales, B, S): one Bernoulli
+    keep (probability 1 - mpi.sigma_dropout_rate) per plane and output
+    scale, drawn from `generator` on the CPU. None unless the model is in
+    train mode with a positive rate."""
     rate = cfg.mpi.sigma_dropout_rate
     if rate <= 0.0 or not model.training:
         return None
-    shape = (len(model.decoder.scales),) + tuple(disparity.shape)
+    shape = (len(model.decoder.scales), disparity.shape[0],
+             disparity.shape[1] if planes is None else planes)
     return torch.bernoulli(torch.full(shape, 1.0 - rate), generator=generator).to(
         disparity.device)
 
@@ -119,6 +123,69 @@ def predict_mpis(cfg: Config, model: torch.nn.Module, img: torch.Tensor,
     if cfg.model.dtype == "float32":
         return model(img, disparity, sigma_keep)
     raise ValueError(f"model.dtype={cfg.model.dtype!r} must be bfloat16 or float32")
+
+
+def forward_coarse_to_fine(cfg: Config, model: MPINetwork, src_img: torch.Tensor,
+                           k_src_inv: torch.Tensor, disparity: torch.Tensor,
+                           generator: torch.Generator | None = None,
+                           dropout_generator: torch.Generator | None = None,
+                           fine_u: torch.Tensor | None = None, plan=None):
+    """The coarse-to-fine forward (mpi.num_bins_fine > 0) of loss_fcn:
+    (mpis, disparity of the planes the mpis hold). `disparity` is the
+    global (B_global, S_coarse) list, `fine_u` the global (B_global, 1,
+    S_fine) uniforms of the fine draws (drawn from `generator` when None).
+
+    The coarse pass runs without gradient in the model's mode (in train mode
+    it moves the BatchNorm statistics, and the fine pass moves them again
+    from there); sigma dropout draws masks for each pass at that pass's
+    plane count. With a `plan` each rank takes its rows of every global draw;
+    under plane sharding each rank runs its block of the coarse planes, one
+    (B, S_local) -> (B, S) gather rebuilds the per-plane weights, every
+    plane rank merges the same list and takes its block of the S_coarse +
+    S_fine planes."""
+    s_fine = cfg.mpi.num_bins_fine
+    rows, s_coarse = disparity.shape
+    b, h, w, _ = src_img.shape
+    if fine_u is None:
+        fine_u = torch.rand((rows, 1, s_fine), generator=generator)
+    dtype = torch.promote_types(src_img.dtype, torch.float32)
+    fine_u = fine_u.to(device=src_img.device, dtype=dtype)
+    first = 0 if plan is None else plan.batch_index * b
+    disparity_rows, u = disparity[first:first + b], fine_u[first:first + b]
+
+    def local(draw):
+        return draw if plan is None or draw is None else plan.local(draw)
+
+    def predictor(img, disp):
+        # masks drawn for the global rows at this pass's plane count
+        n_planes = disp.shape[1] * (1 if plan is None else plan.plane.size)
+        keep = sigma_keep_masks(cfg, model, disparity, dropout_generator, planes=n_planes)
+        return predict_mpis(cfg, model, img, disp, local(keep))
+
+    if plan is None or plan.plane.size == 1:
+        xyz = src_xyz_from_plane_disparity(disparity_rows, k_src_inv, h, w)
+        return predict_mpi_coarse_to_fine(predictor, src_img, xyz, disparity_rows, s_fine,
+                                          u=u, is_bg_depth_inf=cfg.mpi.is_bg_depth_inf)
+    from mine_tpu_torch.parallel.comm import gather_dim
+    from mine_tpu_torch.parallel.plane_sharding import sharded_plane_volume_rendering
+
+    axis = plan.plane
+    if s_coarse % axis.size or s_fine % axis.size:
+        raise ValueError(f"plane-sharded coarse-to-fine needs both num_bins_coarse={s_coarse} "
+                         f"and num_bins_fine={s_fine} to divide the plane-axis size "
+                         f"{axis.size}")
+    disp_local = local(disparity)
+    with torch.no_grad():
+        mpi0 = predictor(src_img, disp_local)[0]
+        xyz_local = src_xyz_from_plane_disparity(disp_local, k_src_inv, h, w)
+        _, _, _, weights = sharded_plane_volume_rendering(
+            mpi0[..., 0:3], mpi0[..., 3:4], xyz_local, axis, cfg.mpi.is_bg_depth_inf)
+        # plane order is group rank order: one gather rebuilds the (B, S) PDF
+        w_full = gather_dim(torch.mean(weights, dim=(2, 3, 4)), axis.group, 1)
+    merged = merge_fine_disparity(disparity_rows, w_full, s_fine, u=u)
+    s_local = merged.shape[1] // axis.size
+    disp_fine = merged[:, axis.index * s_local:(axis.index + 1) * s_local]
+    return predictor(src_img, disp_fine), disp_fine
 
 
 def render_novel_view(cfg: Config, mpi_rgb, mpi_sigma, disparity, g_tgt_src,
@@ -282,7 +349,8 @@ def loss_fcn(cfg: Config, model: MPINetwork, batch: dict[str, torch.Tensor],
              generator: torch.Generator | None = None,
              disparity: torch.Tensor | None = None,
              dropout_generator: torch.Generator | None = None, is_val: bool = False,
-             lpips_params: dict | None = None, per_example: bool = False, plan=None):
+             lpips_params: dict | None = None, per_example: bool = False, plan=None,
+             fine_u: torch.Tensor | None = None):
     """The network forward (in the model's current mode; train mode updates
     the BatchNorm running statistics and applies sigma dropout with masks
     from `dropout_generator`) and the losses of every scale the model
@@ -295,20 +363,29 @@ def loss_fcn(cfg: Config, model: MPINetwork, batch: dict[str, torch.Tensor],
     given) and the dropout masks are the global (B_global, S) ones, of which
     the rank takes its rows and planes, and the render goes through the
     plan's compositor. The losses are this rank's rows' (replicated over
-    the plane ranks)."""
+    the plane ranks).
+
+    With mpi.num_bins_fine > 0 the forward is forward_coarse_to_fine (its
+    fine uniforms `fine_u`, global like the disparities, drawn from
+    `generator` after the disparities when None), and the losses render the
+    merged planes."""
     src_img = batch["src_img"]
     b = src_img.shape[0]
     if disparity is None:
         rows = b if plan is None else b * plan.n_batch
         disparity = make_disparity_list(cfg, rows, src_img.device, generator,
                                         torch.promote_types(src_img.dtype, torch.float32))
-    keep = sigma_keep_masks(cfg, model, disparity, dropout_generator)
-    compositor = None
-    if plan is not None:
-        disparity = plan.local(disparity)
-        keep = None if keep is None else plan.local(keep)
-        compositor = plan.compositor
-    mpis = predict_mpis(cfg, model, src_img, disparity, keep)
+    compositor = None if plan is None else plan.compositor
+    if cfg.mpi.num_bins_fine > 0:
+        mpis, disparity = forward_coarse_to_fine(
+            cfg, model, src_img, inverse_3x3(batch["k_src"]), disparity, generator,
+            dropout_generator, fine_u, plan)
+    else:
+        keep = sigma_keep_masks(cfg, model, disparity, dropout_generator)
+        if plan is not None:
+            disparity = plan.local(disparity)
+            keep = None if keep is None else plan.local(keep)
+        mpis = predict_mpis(cfg, model, src_img, disparity, keep)
     scales = sorted(mpis)
     if not scales or scales[0] != 0:
         raise ValueError("the loss needs scale 0: it drives the calibration")
@@ -359,7 +436,7 @@ def train_step(cfg: Config, model: MPINetwork, optimizer: torch.optim.Optimizer,
                scheduler, batch: dict[str, torch.Tensor],
                generator: torch.Generator | None = None,
                dropout_generator: torch.Generator | None = None,
-               plan=None) -> dict[str, torch.Tensor]:
+               plan=None, fine_u: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
     """One update; returns the detached loss dict with "grad_norm" (the
     global gradient norm, before weight decay) and "update_skipped".
 
@@ -381,7 +458,31 @@ def train_step(cfg: Config, model: MPINetwork, optimizer: torch.optim.Optimizer,
     whose backward passes the local cotangent), the gradients are summed
     over every rank once (after the accumulation), the logged loss dict is
     averaged over the batch replicas, and the finite verdict is the whole
-    mesh's, so every rank keeps or skips the same update."""
+    mesh's, so every rank keeps or skips the same update. Under the plan's
+    sharded state layout the parameters are gathered once at the start
+    (scope "fsdp_gather"), the global gradient norm and the verdict read the
+    full reduced gradients, and Adam steps on this rank's moment shard
+    before each update is gathered back to its parameter's layout
+    (data_parallel.sharded_optimizer_step); a failed or skipped step leaves
+    the parameters in their layout. `fine_u`: the coarse-to-fine uniforms
+    of a step without accumulation (loss_fcn)."""
+    from mine_tpu_torch.parallel import data_parallel as dp
+
+    layout = None if plan is None else plan.layout
+    if layout is not None:
+        dp.gather_params(model, layout, plan.mesh)
+    try:
+        return _train_step(cfg, model, optimizer, scheduler, batch, generator,
+                           dropout_generator, plan, fine_u)
+    except BaseException:
+        if layout is not None:
+            dp.release_params(model, layout, plan.mesh)
+        raise
+
+
+def _train_step(cfg, model, optimizer, scheduler, batch, generator, dropout_generator, plan,
+                fine_u):
+    from mine_tpu_torch.parallel import data_parallel as dp
     from mine_tpu_torch.parallel.comm import all_reduce_, all_reduce_replicated
 
     model.train()
@@ -399,7 +500,8 @@ def train_step(cfg: Config, model: MPINetwork, optimizer: torch.optim.Optimizer,
         for i in range(k):
             micro = batch if k == 1 else {key: v[i * m:(i + 1) * m] for key, v in batch.items()}
             total, ld, _ = loss_fcn(cfg, model, micro, generator,
-                                    dropout_generator=dropout_generator, plan=plan)
+                                    dropout_generator=dropout_generator, plan=plan,
+                                    fine_u=fine_u if k == 1 else None)
             if plan is not None:
                 total = all_reduce_replicated(total, plan.batch_group) / plan.n_batch
             g = torch.autograd.grad(total, params, allow_unused=True)
@@ -440,12 +542,18 @@ def train_step(cfg: Config, model: MPINetwork, optimizer: torch.optim.Optimizer,
     out["update_skipped"] = torch.tensor(float(skipped), device=grad_norm.device)
     for p, g in zip(params, grads):  # left in .grad for inspection until the next step
         p.grad = g.to(p.dtype)
+    layout = None if plan is None else plan.layout
     if skipped:
         snapshot.restore()
+        if layout is not None:
+            dp.release_params(model, layout, plan.mesh)
         return out
     with scope("optimizer"):
-        optimizer.step()
-        scheduler.step()
+        if layout is not None:
+            dp.sharded_optimizer_step(optimizer, scheduler, model, layout, plan.mesh)
+        else:
+            optimizer.step()
+            scheduler.step()
     return out
 
 
@@ -460,14 +568,23 @@ def eval_step(cfg: Config, model: MPINetwork, batch: dict[str, torch.Tensor],
     absent), with "eval_examples" their count. With a `plan` the batch is
     this rank's rows, and the weighted sums and the count are summed over
     the batch replicas before the division, so the mean is exact whichever
-    rank's rows the padded slots fell on."""
+    rank's rows the padded slots fell on. Under the plan's sharded layout
+    the parameters are gathered for the step and released after it."""
+    from mine_tpu_torch.parallel import data_parallel as dp
     from mine_tpu_torch.parallel.comm import all_reduce_
 
     model.eval()
     batch = dict(batch)
     weight = batch.pop("eval_weight", None)
-    _, loss_dict, viz = loss_fcn(cfg, model, batch, generator, is_val=True,
-                                 lpips_params=lpips_params, per_example=True, plan=plan)
+    layout = None if plan is None else plan.layout
+    if layout is not None:
+        dp.gather_params(model, layout, plan.mesh)
+    try:
+        _, loss_dict, viz = loss_fcn(cfg, model, batch, generator, is_val=True,
+                                     lpips_params=lpips_params, per_example=True, plan=plan)
+    finally:
+        if layout is not None:
+            dp.release_params(model, layout, plan.mesh)
     if weight is None:
         weight = torch.ones_like(loss_dict["psnr_tgt"])
     num = {key: torch.sum(v * weight) for key, v in loss_dict.items()}

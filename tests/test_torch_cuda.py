@@ -348,3 +348,68 @@ def test_one_llff_fixture_step_on_the_card_matches_the_cpu(cuda, tmp_path):
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     assert math.isfinite(losses["cuda"]["loss"])
     assert losses["cuda"]["loss"] == pytest.approx(losses["cpu"]["loss"], rel=1e-4)
+
+
+def test_warp_composite_at_the_coarse_to_fine_plane_count(cuda):
+    """K5 at S=64, the coarse-to-fine recipe's 32 + 32 planes, on merged
+    (unevenly spaced) disparities with the nearest planes behind the
+    camera in one pose."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    n, s, h, w = 2, 64, 96, 128
+    rgb = torch.rand((n, s, h, w, 3), generator=gen, device=cuda)
+    sigma = torch.rand((n, s, h, w, 1), generator=gen, device=cuda) * 3
+    k = torch.tensor([[64.0, 0, w / 2], [0, 64.0, h / 2], [0, 0, 1]], device=cuda).expand(n, 3, 3)
+    g = torch.eye(4, device=cuda).repeat(n, 1, 1)
+    g[0, :3, 3] = torch.tensor([0.1, 0.05, -1.3], device=cuda)
+    g[1, :3, 3] = torch.tensor([0.05, -0.02, 0.01], device=cuda)
+    coarse = torch.linspace(1.0, 0.001, s // 2, device=cuda)
+    fine = torch.rand((s // 2,), generator=gen, device=cuda) * 0.999 + 0.001
+    disparity = torch.sort(torch.cat([coarse, fine]), descending=True).values[None].repeat(n, 1)
+    operands = (rgb, sigma, *streaming_matrices(disparity, g, inverse_3x3(k), k))
+    kw.reset_launches()
+    got = kw.warp_composite(*operands)
+    torch.cuda.synchronize()
+    assert kw.launches["warp_composite"] == 1
+    torch.testing.assert_close(got, kw.warp_composite_matrix_plain(*operands),
+                               rtol=1e-5, atol=1e-5)
+    assert bool((kw.composite_operands(*operands[2:], h, w)[3][0, 0] < 0).all())
+
+
+def test_one_fsdp2_step_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """One step of the train CLI under mesh.fsdp_parallel=2 with ZeRO-1,
+    two gloo ranks sharing the card, against the same two ranks on the
+    CPU (128x128, ResNet-18, S=4, B=1 a rank, fp32, TF32 off in both): the
+    logged loss to rel 1e-4 and the gradient norm to rel 1e-3 (cuDNN's and
+    the CPU's convolutions sum in other orders); the checkpoint gathered
+    on save holds full-shape parameters."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from mine_tpu_torch.training import checkpoint as ckpt
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    over = {"data.name": "synthetic", "data.img_h": 128, "data.img_w": 128,
+            "model.num_layers": 18, "model.dtype": "float32", "mpi.num_bins_coarse": 4,
+            "data.per_gpu_batch_size": 1, "data.num_workers": 0, "data.visible_point_count": 32,
+            "mesh.data_parallel": 1, "mesh.fsdp_parallel": 2, "parallel.zero1": True}
+    logged = {}
+    for where, device in (("cuda", "cuda:0"), ("cpu", "cpu")):
+        ws = str(tmp_path / where)
+        port = 29500 + (os.getpid() % 400) + (where == "cpu")
+        env = {**os.environ, "PYTHONPATH": repo, "NVIDIA_TF32_OVERRIDE": "0"}
+        out = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "2",
+             "--master-addr", "127.0.0.1", "--master-port", str(port), "-m",
+             "mine_tpu_torch.train", "--device", device, "--dist-backend", "gloo",
+             "--workspace", ws, "--max_steps", "1", "--extra_config", json.dumps(over)],
+            cwd=repo, env=env, capture_output=True, text=True, timeout=600)
+        assert out.returncode == 0, out.stderr[-3000:]
+        with open(os.path.join(ws, "train_log.jsonl")) as fh:
+            logged[where] = json.loads(fh.readline())
+        state = ckpt.load(ws, 1)["model"]
+        assert tuple(state["backbone.encoder.layer4.0.conv2.weight"].shape) == (512, 512, 3, 3)
+    assert math.isfinite(logged["cuda"]["loss"])
+    assert logged["cuda"]["loss"] == pytest.approx(logged["cpu"]["loss"], rel=1e-4)
+    assert logged["cuda"]["grad_norm"] == pytest.approx(logged["cpu"]["grad_norm"], rel=1e-3)

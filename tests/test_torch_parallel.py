@@ -738,9 +738,11 @@ def test_mesh_errors_are_the_jax_messages(monkeypatch):
 
 
 def test_parallel_config_group_is_loaded_and_refused_by_name():
-    """The parallel group, which the port dropped on load before this slice,
-    reaches the config with the JAX loader's values; zero1, non-empty rules
-    and an fsdp axis are refused by name, the data and plane axes are not."""
+    """The parallel group reaches the config whole, with the JAX loader's
+    values, and an unknown key of it raises. Since the sharded-state slice
+    zero1, non-empty rules and an fsdp axis are honoured (no refusal names
+    them); a warm start that is not a converted .npz is still refused by
+    name."""
     from mine_tpu.config import load_config as jax_load_config
     from mine_tpu_torch.config import load_config, unsupported_training_options
 
@@ -750,11 +752,13 @@ def test_parallel_config_group_is_loaded_and_refused_by_name():
     cfg, jcfg = load_config(default, overrides=over), jax_load_config(default, overrides=over)
     assert (cfg.parallel.zero1, cfg.parallel.rules, cfg.parallel.zero1_min_size) == \
         (jcfg.parallel.zero1, tuple(jcfg.parallel.rules), jcfg.parallel.zero1_min_size)
-    problems = unsupported_training_options(cfg)
-    assert len(problems) == 2 and "parallel.zero1" in problems[0] \
-        and "parallel.rules" in problems[1]
-    fsdp = unsupported_training_options(load_config(default, overrides={"mesh.fsdp_parallel": 2}))
-    assert len(fsdp) == 1 and "mesh.fsdp_parallel" in fsdp[0] and "queue 1 item 6" in fsdp[0]
+    assert unsupported_training_options(cfg) == []
+    assert unsupported_training_options(load_config(default, overrides={
+        "mesh.fsdp_parallel": 2, "mpi.num_bins_fine": 8})) == []
+    warm = unsupported_training_options(load_config(default, overrides={
+        "training.pretrained_checkpoint_path": "/nowhere/orbax_run"}))
+    assert len(warm) == 1 and "pretrained_checkpoint_path" in warm[0] \
+        and "queue 1 item 7" in warm[0]
     assert unsupported_training_options(load_config(default, overrides={
         "mesh.data_parallel": 2, "mesh.plane_parallel": 4})) == []
     with pytest.raises(KeyError, match="unknown config key"):

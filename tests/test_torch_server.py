@@ -409,8 +409,12 @@ def test_server_cli_and_app_refuse_what_they_cannot_serve(weights, tmp_path):
                      device="cpu")
     assert app.degrade is not None and app.health()["degradation"]["level"] == 0
     app.close()
-    with pytest.raises(NotImplementedError, match="coarse-to-fine"):
-        ServingApp(Config().replace(**{**TINY, "mpi.num_bins_fine": 4}), state, device="cpu")
+    # coarse-to-fine is served now (tests/test_torch_c2f.py): the bucket keeps
+    # the coarse count as its key and renders the merged planes
+    app = ServingApp(Config().replace(**{**TINY, "mpi.num_bins_fine": 4}), state, device="cpu")
+    bucket = app.engine.bucket()
+    assert bucket.is_c2f and bucket.num_planes == bucket.spec[2] + 4
+    app.close()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tserver.main(["--workspace", str(tmp_path)])

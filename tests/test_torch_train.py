@@ -474,24 +474,28 @@ def test_train_cli_runs_two_steps_on_the_cpu(tmp_path):
 
 def test_unhonoured_options_raise_naming_the_roadmap_item():
     """What the port does not honour yet raises, naming its ROADMAP queue 1
-    item; accumulation, sigma dropout, remat, the sentinel and an .npz warm
-    start are honoured now (tests/test_torch_accum.py, test_torch_remat.py,
-    test_torch_checkpoint.py), and the data and plane mesh axes since the
-    parallel slice (tests/test_torch_parallel.py): one process refuses a
-    plane axis of 2 as the JAX mesh does, with the device count."""
+    item (a warm start that is not a converted .npz); accumulation, sigma
+    dropout, remat, the sentinel and an .npz warm start are honoured now
+    (tests/test_torch_accum.py, test_torch_remat.py,
+    test_torch_checkpoint.py), the data and plane mesh axes since the
+    parallel slice (tests/test_torch_parallel.py), and ZeRO-1, the rule rows
+    and coarse-to-fine since the sharded-state slice
+    (tests/test_torch_sharded_state.py, test_torch_c2f.py): one process
+    refuses a plane or fsdp axis of 2 as the JAX mesh does, with the device
+    count."""
     from mine_tpu_torch.training.loop import Trainer
 
-    for key, value in (("mesh.fsdp_parallel", 2), ("parallel.zero1", True),
-                       ("parallel.rules", ("^params/decoder/ = replicated",)),
-                       ("mpi.num_bins_fine", 4),
-                       ("training.pretrained_checkpoint_path", "/nowhere/orbax_run")):
-        cfg = Config().replace(**TINY, **{key: value})
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-            Trainer(cfg, device="cpu")
-    with pytest.raises(ValueError, match="plane_parallel=2 must divide 1 devices"):
-        Trainer(Config().replace(**TINY, **{"mesh.plane_parallel": 2}), device="cpu")
+    cfg = Config().replace(**TINY, **{"training.pretrained_checkpoint_path":
+                                      "/nowhere/orbax_run"})
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
+        Trainer(cfg, device="cpu")
+    for axis in ("plane_parallel", "fsdp_parallel"):
+        with pytest.raises(ValueError, match=f"{axis}=2 must divide 1 devices"):
+            Trainer(Config().replace(**TINY, **{f"mesh.{axis}": 2}), device="cpu")
     for key, value in (("training.accum_steps", 2), ("mpi.sigma_dropout_rate", 0.1),
-                       ("model.remat_decoder", True), ("resilience.sentinel_policy", "skip")):
+                       ("model.remat_decoder", True), ("resilience.sentinel_policy", "skip"),
+                       ("parallel.zero1", True), ("mpi.num_bins_fine", 4),
+                       ("parallel.rules", ("^params/decoder/ = replicated",))):
         Trainer(Config().replace(**TINY, **{key: value}), device="cpu")
     # the real dataset loaders are ported (tests/test_torch_data.py): only a
     # name no loader registers raises now, listing the registered ones
