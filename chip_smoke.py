@@ -42,7 +42,8 @@ From the root of a checkout, on a machine with a CUDA device and nvcc:
      checkpoint and an eval, its launches a step asserted, its step time and
      peak memory beside the dense step's; a new Trainer resuming from the
      workspace bit-equal; the eval pass with LPIPS (seeded weights) at full
-     width; the 768x1024, S=128, B=1 recipe with remat (llff_highres.yaml),
+     width, its val/ image grids checked in the event file; the 768x1024,
+     S=128, B=1 recipe with remat (llff_highres.yaml),
      whose scale-0 warps are the size class of the TPU's banded kernels;
   7. trains from the datasets' own on-disk formats (data_phases): the
      default recipe (ResNet-50, 384x512, S=32, B=4, bf16, dense) from an LLFF
@@ -102,8 +103,8 @@ From the root of a checkout, on a machine with a CUDA device and nvcc:
      named abort (exit 83) within the watchdog window; K5 with a halo plane
      against its plain version on a plane shard's real inputs, and the two
      shards composed into the whole render;
- 12. shards training state and places planes coarse-to-fine (right after
-     the parallel phase): the train CLI on two gloo ranks under
+ 12. shards training state, preempts it and places planes coarse-to-fine
+     (right after the parallel phase): the train CLI on two gloo ranks under
      mesh.fsdp_parallel=2 and under data=2 with parallel.zero1 (fp32, B=4,
      2 steps each; each rank's resident parameter and Adam-moment bytes
      equal the partition-rule table's placement_bytes, below replication;
@@ -113,14 +114,25 @@ From the root of a checkout, on a machine with a CUDA device and nvcc:
      their peak memory, 2 steps at plane=2 on two ranks (first step's loss
      dict at rtol 1e-4), a RenderEngine coarse-to-fine bucket predicting
      once and rendering poses (K5 at S=64, held against its plain version)
-     and a VideoGenerator rendering them dense;
+     and a VideoGenerator rendering them dense; the preemption save under
+     fsdp=2 and ZeRO-1 (those same runs, rank 1 alone SIGTERMed after
+     step 2 of 3: both ranks save step 2 together, equal bit for bit to
+     the state they hold, and end with the SIGTERM's disposition; a
+     one-process resume runs step 3;
+     each rank's save seconds and the per-step flag all-reduce timed), the
+     emergency checkpoint under fsdp=2 (rank 1 raises after step 2: each
+     rank writes its own verified shard file, step 2 counts and resumes in
+     one process), and a warm start from the ZeRO-1 run's workspace (one
+     step, K1 and K2 launched);
  11. times every kernel (CUDA events), its plain version and, for the warp
      and its backward, torch's grid_sample, beside each kernel's memory
      bound (the backward also on the captured training operands; the
      warp-composite also at the 768x1024, S=128 size); times predict and
      render per frame, the frames' copy to host memory on its own, and the
      train step; profiles them, with the device events per frame, and the
-     coordinate-form prep the streaming render no longer runs.
+     coordinate-form prep the streaming render no longer runs (device time
+     sums kernels and copies only, not the profiler's annotation ranges; a
+     busy share above 1 fails the phase).
 Every result line is JSON and carries the card's name and power limit; the
 last line is {"ok": true, "device": {...}}. Any failure raises and the exit
 code is not 0. Without a CUDA device, or outside a checkout, it exits non-zero
@@ -231,10 +243,35 @@ def pose(tx: float, ty: float, tz: float, yaw: float = 0.02) -> np.ndarray:
     return g
 
 
+def device_work(events) -> list:
+    """The profiler's device events that are work: kernels, copies and
+    sets. Dropped are the ranges it also reports on the device: the GPU-side
+    user annotations (`gpu_user_annotation`, which obs/attrib.py scope's
+    record_function opens around the kernels of a component) and any other
+    event that encloses another one on its stream, which only spans work
+    counted already. Kernels on one stream never overlap."""
+    on_device = [e for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)
+                 and "annotation" not in (getattr(e, "activity_type", None) or "")]
+    by_stream: dict = {}
+    for e in on_device:
+        by_stream.setdefault((e.device_index, e.device_resource_id), []).append(e)
+    kept = []
+    for stream in by_stream.values():
+        stream.sort(key=lambda e: (e.time_range.start, -e.time_range.end))
+        for e, nxt in zip(stream, stream[1:] + [None]):
+            if nxt is None or nxt.time_range.end > e.time_range.end:
+                kept.append(e)
+    return kept
+
+
 def profile_breakdown(fn, frames: int, top: int = 8) -> dict:
     """One profiled call of fn (after a warm one): wall and device time per
     frame, the device's busy share, and the kernels taking the most device
-    time. The profiler's own overhead inflates the wall time."""
+    time. Device time sums `device_work` events only, so no kernel is
+    counted twice; a busy share above 1 fails the phase. The profiler's own
+    overhead inflates the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -244,29 +281,26 @@ def profile_breakdown(fn, frames: int, top: int = 8) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-
-    def device_us(evt) -> float:
-        return float(getattr(evt, "self_device_time_total", 0.0)
-                     or getattr(evt, "self_cuda_time_total", 0.0))
-
-    # device-side events only (kernels, copies): the aten ops that launched
-    # them carry the same device time again
-    on_device = sorted(
-        (e for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0),
-        key=device_us, reverse=True,
-    )
-    device_ms = sum(device_us(e) for e in on_device) / 1e3
+    by_name: dict[str, list] = {}
+    for e in device_work(prof.events()):
+        row = by_name.setdefault(e.name, [0.0, 0])
+        row[0] += e.time_range.elapsed_us()
+        row[1] += 1
+    top_items = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)
+    device_ms = sum(us for us, _ in by_name.values()) / 1e3
+    share = device_ms / wall_ms
+    if not by_name or share > 1.0:
+        raise AssertionError(f"profile: device time {device_ms} ms against {wall_ms} ms of wall "
+                             f"time (busy share {share}) over {len(by_name)} device kernels")
     return {
         "wall_ms_per_frame": wall_ms / frames,
         "device_ms_per_frame": device_ms / frames,
-        "device_busy_share": device_ms / wall_ms,
+        "device_busy_share": share,
         # kernels and copies the card ran, per frame
-        "device_events_per_frame": sum(e.count for e in on_device) / frames,
+        "device_events_per_frame": sum(n for _, n in by_name.values()) / frames,
         "top_kernels": [
-            {"name": e.key[:100], "ms_per_frame": device_us(e) / 1e3 / frames,
-             "calls_per_frame": e.count / frames}
-            for e in on_device[:top]
+            {"name": name[:100], "ms_per_frame": us / 1e3 / frames, "calls_per_frame": n / frames}
+            for name, (us, n) in top_items[:top]
         ],
     }
 
@@ -341,6 +375,26 @@ def write_seeded_lpips(path: str, seed: int = 0) -> None:
     np.savez(path, **arrays)
 
 
+class GridRecorder:
+    """MetricWriter's event writer where tensorboardX does not import: it
+    keeps each image grid's array."""
+
+    def __init__(self):
+        self.images: dict[str, np.ndarray] = {}
+
+    def add_scalar(self, *args, **kwargs) -> None:
+        pass
+
+    def add_image(self, tag, img, step, dataformats) -> None:
+        self.images[tag] = np.asarray(img)
+
+    def flush(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 def rel_l2_and_max(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     """||got - want|| / ||want|| and max |got - want| / max |want|."""
     diff = (got - want).double()
@@ -368,6 +422,7 @@ def streaming_phases(info, dev, gen, h, w, s, train_cfg, train_state, batch_size
     from mine_tpu_torch.training import checkpoint as ckpt
     from mine_tpu_torch.training.loop import Trainer, run_evaluation
     from mine_tpu_torch.training.step import batch_to_device, loss_fcn, make_disparity_list
+    from mine_tpu_torch.utils.logging import MetricWriter, event_summaries
 
     root = os.path.dirname(os.path.abspath(__file__))
     scratch = os.path.join(root, "build", "chip_smoke")
@@ -537,20 +592,47 @@ def streaming_phases(info, dev, gen, h, w, s, train_cfg, train_state, batch_size
     write_seeded_lpips(lpips_path)
     e_cfg = s_cfg.replace(**{"training.lpips_weights_path": lpips_path})
     lpips_params = load_lpips_params(lpips_path, dev)
+    # its val/ scalars and image grids to an event file (tensorboardX), or,
+    # where tensorboardX does not import, to a recording stand-in
+    events_dir = os.path.join(scratch, "eval_events")
+    writer = MetricWriter(events_dir)
+    try:
+        import tensorboardX  # noqa: F401
+
+        recorder = None
+    except ImportError:
+        recorder = writer._tb = GridRecorder()
     kw.reset_launches()
     t0 = time.perf_counter()
     result = run_evaluation(e_cfg, s_trainer.model, s_val_ds, dev, lpips_params,
-                            s_trainer.global_step)
+                            s_trainer.global_step, writer=writer)
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
+    writer.close()
     eval_launches = dict(kw.launches)
     s_trainer.model.train()
     want = {"warp_composite": 4 * len(s_val_ds), "warp_bilinear": 0, "warp_bilinear_grad": 0}
     if eval_launches != want or result["eval_examples"] != s_val_ds.num_eval_examples \
             or not result["lpips_tgt"] > 0 or not all(map(math.isfinite, result.values())):
         raise AssertionError(f"eval_path: launches {eval_launches} (want {want}), {result}")
+    grid_hw = (h, min(4, batch_size) * w)
+    tags = ("val/tgt_syn", "val/src_syn", "val/tgt_disparity")
+    if recorder is None:
+        found = event_summaries(events_dir)
+        grids = {t: found.get(t) for t in tags}
+        if not all(g and g["kind"] == "image" and g["hw"] == grid_hw for g in grids.values()):
+            raise AssertionError(f"eval_path: image grids in the event file {grids}")
+    else:
+        grids = {t: [list(a.shape), float(a.min()), float(a.max())]
+                 for t, a in recorder.images.items()}
+        if set(grids) != set(tags) or not all(
+                a.shape[:2] == grid_hw and np.isfinite(a).all() and 0 <= a.min() <= a.max() <= 1
+                for a in recorder.images.values()):
+            raise AssertionError(f"eval_path: image grid arrays {grids}")
     emit(info, phase="eval_path", metrics=result, eval_examples=result["eval_examples"],
-         seconds=eval_s, launches=eval_launches)
+         seconds=eval_s, launches=eval_launches,
+         image_grids=grids if recorder is None else {
+             "tensorboardX": "did not import; the arrays were checked", **grids})
     out["launches"]["eval"] = {"kernels": eval_launches}
     del s_trainer
     torch.cuda.empty_cache()
@@ -2328,21 +2410,34 @@ STALL_WINDOW_S = 15.0
 
 def train_rank_main(spec_path: str) -> int:
     """One rank of a torchrun job (`chip_smoke.py --train-rank SPEC`): SPEC
-    is a JSON list of [OUT, train CLI args] segments, run one after the
-    other in this process on one process group (the launch, the imports and
-    the group's bring-up are paid once; the group is destroyed after the
-    last segment). Each segment is the train CLI's main with TF32 off, then
-    what the rank saw into OUT.r<rank>.json: its kernel launches (K1/K2 by
-    size class), the process group's backend, the mesh, each step's time,
-    the segment's seconds, its peak memory, a digest of its parameters
-    (replicas must hold the same ones) and what the chaos schedule left
-    pending; rank 0 saves its first step's gradients (the mesh's,
-    all-reduced) to OUT.grads.pt. Under a sharded state layout the
+    is a JSON list of [OUT, train CLI args(, options)] segments, run one
+    after the other in this process on one process group (the launch, the
+    imports and the group's bring-up are paid once; the group is destroyed
+    after the last segment). Each segment is the train CLI's main with TF32
+    off, then what the rank saw into OUT.r<rank>.json: its kernel launches
+    (K1/K2 by size class), the process group's backend, the mesh, each
+    step's time, the host time of each step boundary's preemption-flag
+    all-reduce, the segment's seconds, its peak memory, a digest of its
+    parameters (replicas must hold the same ones) and what the chaos
+    schedule left pending; rank 0 saves its first step's gradients (the
+    mesh's, all-reduced) to OUT.grads.pt. Under a sharded state layout the
     gradients are saved full, before the sharded update slices them, and
     the rank records its parameter and moment bytes (resident, by the
-    table, replicated)."""
+    table, replicated).
+
+    Options: "faults" {rank: MINE_TPU_FAULTS spec} installs a chaos schedule
+    on that rank for the segment. "ends": "sigterm" takes the SIGTERM's
+    disposition (termination) as SystemExit(143), the code a shell reports
+    for a process that SIGTERM ended, where the preemption guard chains to
+    it, and goes on with the next segment; each rank records that it ended
+    so, the seconds of its preemption save, and rank 0 whether the saved
+    step equals the state the ranks hold, bit for bit. "ends": "exception"
+    (the last segment) records the error that ended the rank's run and
+    whether its emergency shard file holds what the rank holds, then ends
+    the process (exit 0), which also fails a peer blocked in a collective."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import gc
+    import signal
 
     import torch.distributed as dist
 
@@ -2351,6 +2446,7 @@ def train_rank_main(spec_path: str) -> int:
     from mine_tpu_torch.parallel import data_parallel as dp
     from mine_tpu_torch.parallel.mesh import mesh_shape_str
     from mine_tpu_torch.resilience import chaos
+    from mine_tpu_torch.training import checkpoint as ckpt
     from mine_tpu_torch.training import loop
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2360,6 +2456,7 @@ def train_rank_main(spec_path: str) -> int:
     seen: dict = {}
     out_prefix = ""
     step, fit = loop.Trainer.step, loop.Trainer.fit
+    preempt_save, flag_all_reduce = loop.Trainer._preempt_save, loop.all_reduce_max_int
     sharded_step = dp.sharded_optimizer_step
     destroy = dist.destroy_process_group
 
@@ -2378,6 +2475,17 @@ def train_rank_main(spec_path: str) -> int:
             save_grads(self.model, f"{out_prefix}.grads.pt")
         return out
 
+    def timed_flag(*args, **kwargs):
+        t = time.perf_counter()
+        out = flag_all_reduce(*args, **kwargs)
+        seen["flag_ms"].append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def timed_preempt_save(self, reason):
+        t = time.perf_counter()
+        preempt_save(self, reason)
+        seen["preempt_save_s"] = time.perf_counter() - t
+
     def recorded_fit(self, *args, **kwargs):
         seen.update(backend=dist.get_backend() if dist.is_initialized() else None,
                     world=dist.get_world_size() if dist.is_initialized() else 1,
@@ -2386,6 +2494,30 @@ def train_rank_main(spec_path: str) -> int:
         torch.cuda.reset_peak_memory_stats(self.device)
         try:
             return fit(self, *args, **kwargs)
+        except SystemExit:
+            # every rank took the agreed SIGTERM at the same boundary: the
+            # saved step against the state they hold (a collective gather)
+            seen.update(terminated="SIGTERM", step=self.global_step)
+            live = self.state()
+            if self.is_main:
+                saved = ckpt.load(self.workspace, self.global_step)
+                seen["saved_vs_live"] = [k for k, v in live["model"].items()
+                                         if not torch.equal(saved["model"][k], v.cpu())] + [
+                    (i, m) for i, entry in live["optimizer"]["state"].items()
+                    for m in ("exp_avg", "exp_avg_sq", "step")
+                    if not torch.equal(saved["optimizer"]["state"][i][m], entry[m].cpu())]
+            raise
+        except Exception as exc:  # noqa: BLE001 - recorded, then re-raised
+            seen.update(exception=f"{type(exc).__name__}: {str(exc)[:300]}",
+                        step=self.global_step)
+            name = ckpt.shard_dir_name(self.global_step, self.rank, dist.get_world_size())
+            path = os.path.join(self.workspace, "checkpoints", name, ckpt.SHARD_FILE)
+            if os.path.exists(path):
+                saved, live = torch.load(path, weights_only=True), self.rank_shard()
+                seen["shard_vs_live"] = [k for k, v in live["model"].items()
+                                         if not torch.equal(saved["model"][k], v)]
+                seen["shard_bytes"] = os.path.getsize(path)
+            raise
         finally:
             with torch.no_grad():
                 params = [p.double() for p in self.model.parameters()]
@@ -2397,26 +2529,57 @@ def train_rank_main(spec_path: str) -> int:
                                                      self.mesh)
 
     loop.Trainer.step, loop.Trainer.fit = timed_step, recorded_fit
+    loop.Trainer._preempt_save, loop.all_reduce_max_int = timed_preempt_save, timed_flag
     dp.sharded_optimizer_step = saving_sharded_step
     # the group outlives each segment's CLI run (its main destroys it)
     dist.destroy_process_group = lambda *a, **k: None
     rank = int(os.environ.get("RANK", "0"))
+
+    def sigterm_ends(signum, frame):
+        raise SystemExit(128 + signum)
+
     try:
-        for out_prefix, argv in segments:
+        for out_prefix, argv, *more in segments:
+            opts = more[0] if more else {}
             seen.clear()
-            seen["step_ms"] = []
+            seen.update(step_ms=[], flag_ms=[])
             t_segment = time.perf_counter()
             kw.reset_launches()
             tally = SizeTally(kw)
-            logged = train.main(argv)
+            fault = opts.get("faults", {}).get(str(rank))
+            if fault:
+                chaos.install(fault)
+            prev = (signal.signal(signal.SIGTERM, sigterm_ends)
+                    if opts.get("ends") == "sigterm" else None)
+            logged, ended = None, None
+            try:
+                logged = train.main(argv)
+            except SystemExit as exc:
+                if opts.get("ends") != "sigterm":
+                    raise
+                ended = exc.code
+            except Exception:  # noqa: BLE001 - the run's own error, recorded
+                if opts.get("ends") != "exception":
+                    raise
+                ended = "exception"
+            finally:
+                if prev is not None:
+                    signal.signal(signal.SIGTERM, prev)
             torch.cuda.synchronize()
             schedule = chaos.active()
-            seen.update(logged=logged, launches=dict(kw.launches), sizes=tally.read(),
+            seen.update(logged=logged, ended=ended, launches=dict(kw.launches),
+                        sizes=tally.read(),
                         chaos_pending=schedule.pending() if schedule is not None else None,
                         seconds=time.perf_counter() - t_segment)
+            chaos.uninstall()
             tally.close()
             with open(f"{out_prefix}.r{rank}.json", "w") as fh:
                 json.dump(seen, fh)
+            if ended == "exception":
+                # the last segment: this exit also releases a peer blocked in
+                # a collective (its gloo pair closes)
+                sys.stdout.flush()
+                os._exit(0)
             gc.collect()
             torch.cuda.empty_cache()
     finally:
@@ -2459,15 +2622,16 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def run_rank_segments(out_dir: str, label: str, nproc: int, segments: dict[str, list[str]],
+def run_rank_segments(out_dir: str, label: str, nproc: int, segments: dict,
                       env: dict | None = None,
                       timeout_s: float = 600.0) -> tuple[dict[str, list[dict]], float]:
     """One `python -m torch.distributed.run --nproc-per-node nproc` launch of
-    this script's rank mode over `segments` ({segment label: train CLI
-    args}, run in order); each segment's ranks' records, and the wall time
-    of the launch (its log: <label>.log)."""
+    this script's rank mode over `segments` ({segment label: train CLI args,
+    or (args, the rank mode's options)}, run in order); each segment's
+    ranks' records, and the wall time of the launch (its log: <label>.log)."""
     prefix = os.path.join(out_dir, label)
-    spec = [[os.path.join(out_dir, seg), args] for seg, args in segments.items()]
+    spec = [[os.path.join(out_dir, seg), *(args if isinstance(args, tuple) else (args,))]
+            for seg, args in segments.items()]
     with open(f"{prefix}.spec.json", "w") as fh:
         json.dump(spec, fh)
     # two ranks' caching allocators share the card: segments that grow
@@ -2904,18 +3068,191 @@ SHARDED_RUNS = {"fsdp2_fp32": {"mesh.data_parallel": 1, "mesh.fsdp_parallel": 2}
 C2F_OVER = {**RANK_FP32, "data.per_gpu_batch_size": 2, "mpi.num_bins_fine": C2F_FINE}
 
 
-def section12_segments() -> dict[str, list[str]]:
-    """The two-rank training runs of the sharded_state and coarse_to_fine
-    phases, launched with the parallel phase's (`parallel_phase`
-    extra_segments)."""
-    segments = {label: rank_cli_args(os.path.join(PARALLEL_DIR, label),
-                                     {**RANK_FP32, "data.per_gpu_batch_size": 2, **over},
-                                     SHARDED_STEPS)
+# the emergency run (the launch's last segment): rank 1 raises after step
+# SHARDED_STEPS under fsdp=2
+EMERGENCY_RUN = "emergency_fsdp2_fp32"
+
+
+def section12_segments() -> dict:
+    """The two-rank training runs of the sharded_state, preemption and
+    coarse_to_fine phases, launched with the parallel phase's
+    (`parallel_phase` extra_segments). The sharded runs are the preemption
+    runs too: each is to run SHARDED_STEPS + 1 steps, and rank 1 alone is
+    SIGTERMed after step SHARDED_STEPS. The emergency run comes last, since
+    it ends the ranks."""
+    def args(label: str, over: dict, steps: int) -> list[str]:
+        return rank_cli_args(os.path.join(PARALLEL_DIR, label),
+                             {**RANK_FP32, "data.per_gpu_batch_size": 2, **over}, steps)
+
+    segments = {label: (args(label, over, SHARDED_STEPS + 1),
+                        {"faults": {"1": f"sigterm@step={SHARDED_STEPS}"}, "ends": "sigterm"})
                 for label, over in SHARDED_RUNS.items()}
     segments["c2f_plane2_fp32"] = rank_cli_args(
         os.path.join(PARALLEL_DIR, "c2f_plane2_fp32"),
         {**C2F_OVER, "mesh.plane_parallel": 2, "mesh.data_parallel": 1}, 2)
+    segments[EMERGENCY_RUN] = (
+        args(EMERGENCY_RUN, SHARDED_RUNS["fsdp2_fp32"], SHARDED_STEPS + 1),
+        {"faults": {"1": f"preempt_exit@step={SHARDED_STEPS}"}, "ends": "exception"})
     return segments
+
+
+def resume_one_process(ws: str, steps: int, over: dict | None = None) -> dict:
+    """One process (replicated) resuming `ws` to `steps`, the default
+    recipe in fp32 at B=4: its last logged loss dict, launches and
+    seconds."""
+    from mine_tpu_torch.config import load_config
+    from mine_tpu_torch.data.registry import build_dataset
+    from mine_tpu_torch.ops.kernels import warp as kw
+    from mine_tpu_torch.training.loop import Trainer
+
+    cfg = load_config(DEFAULT_CONFIG, overrides={**RANK_FP32, "data.per_gpu_batch_size": 4,
+                                                 **(over or {})})
+    kw.reset_launches()
+    t = time.perf_counter()
+    tr = Trainer(cfg, ws)
+    logged = tr.fit(build_dataset(cfg, "train", tr.global_batch), max_steps=steps)
+    torch.cuda.synchronize()
+    out = {"logged": logged, "global_step": tr.global_step, "launches": dict(kw.launches),
+           "seconds": time.perf_counter() - t, "trainer": tr}
+    return out
+
+
+def preempt_phase(info, par: dict) -> dict:
+    """The preemption save and the emergency checkpoint on two gloo ranks
+    sharing the card (segments of the parallel phase's launch), the default
+    recipe in fp32 at B=4. Preemption (the sharded_state runs, fsdp=2 and
+    ZeRO-1 over data=2): rank 1 alone is SIGTERMed after step 2; both ranks
+    must end with the SIGTERM's disposition at that boundary, step 2 must be
+    on disk, vetted last-good and equal bit for bit to the state the ranks
+    hold, and a one-process resume must run step 3 with finite losses (the
+    ZeRO-1 run's here, the fsdp=2 run's in sharded_state_phase, which runs
+    after this). Each rank's save seconds and the host time of the per-step
+    flag all-reduce (over every two-rank segment of the launch) are
+    reported. Emergency (fsdp=2): rank 1 raises after step 2, rank 0 then
+    fails in step 3's gather; each must have written its own verified shard
+    file of step 2 holding what it holds, step 2 must count, and one process
+    (another layout) resumes it for step 3. Returns the launches of the
+    resumes and the emergency run (the preempted runs' are sharded_state's)."""
+    from mine_tpu_torch.training import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    out_dir = par["out_dir"]
+    # each boundary's flag all-reduce: the rank that arrives first waits for
+    # the other there, so the later arrival's host time (the smaller of the
+    # two) is the all-reduce's own cost
+    launches, flag_ms, flag_wait_ms = {}, [], []
+    for ranks in par["records"].values():
+        calls = [r.get("flag_ms", []) for r in ranks]
+        if len(ranks) == 2 and calls[0] and len(calls[0]) == len(calls[1]):
+            flag_ms += [min(pair) for pair in zip(*calls)]
+            flag_wait_ms += [max(pair) for pair in zip(*calls)]
+    for label in SHARDED_RUNS:
+        ws = os.path.join(out_dir, label)
+        ranks = par["records"][label]
+        log = train_log(ws)
+        problems = []
+        if [r.get("terminated") for r in ranks] != ["SIGTERM"] * 2 or \
+                [r["ended"] for r in ranks] != [128 + 15] * 2:
+            problems.append(f"ends {[(r.get('terminated'), r['ended']) for r in ranks]}")
+        if ckpt.all_steps(ws) != [SHARDED_STEPS] or ckpt.last_good_step(ws) != SHARDED_STEPS:
+            problems.append(f"steps {ckpt.all_steps(ws)}, last good {ckpt.last_good_step(ws)}")
+        if ranks[0].get("saved_vs_live") != [] or [ln["global_step"] for ln in log] != [1, 2]:
+            problems.append(f"saved vs live {ranks[0].get('saved_vs_live')}, log {log}")
+        if ranks[1]["chaos_pending"] != []:
+            problems.append(f"rank 1's fault did not fire: {ranks[1]['chaos_pending']}")
+        resumed = {}
+        if label != "fsdp2_fp32":  # sharded_state_phase resumes that one
+            resumed = resume_one_process(ws, SHARDED_STEPS + 1)
+            del resumed["trainer"]
+            release_card()
+            if resumed["global_step"] != SHARDED_STEPS + 1 or \
+                    not math.isfinite(resumed["logged"]["loss"]):
+                problems.append(f"resume {resumed}")
+            launches[f"preempt_{label}_resume"] = resident_launches(resumed["launches"])
+        if problems:
+            raise AssertionError(f"preempt {label}: {problems}")
+        emit(info, phase="preempt", path=label, mesh=ranks[0]["mesh"],
+             ended=[r["ended"] for r in ranks], saved_step=SHARDED_STEPS,
+             saved_equals_live_bitwise=True,
+             preempt_save_s=[r.get("preempt_save_s") for r in ranks],
+             flag_ms_median=[statistics.median(r["flag_ms"]) for r in ranks],
+             step_ms=[r["step_ms"] for r in ranks], seconds=ranks[0]["seconds"],
+             resume_loss=resumed.get("logged", {}).get("loss"),
+             resume_seconds=resumed.get("seconds"))
+    ws = os.path.join(out_dir, EMERGENCY_RUN)
+    ranks = par["records"][EMERGENCY_RUN]
+    names = [ckpt.shard_dir_name(SHARDED_STEPS, r, 2) for r in range(2)]
+    for name in names:
+        ckpt.verify_checkpoint_integrity(ws, name, require_sidecar=True)
+    if [r["ended"] for r in ranks] != ["exception"] * 2 or \
+            not ranks[1]["exception"].startswith("PreemptedError") or \
+            [r.get("shard_vs_live") for r in ranks] != [[], []] or \
+            ckpt.all_steps(ws) != [SHARDED_STEPS]:
+        raise AssertionError(f"{EMERGENCY_RUN}: records {ranks}, steps {ckpt.all_steps(ws)}")
+    state = ckpt.load(ws, SHARDED_STEPS)
+    finite = all(bool(torch.isfinite(v).all()) for v in state["model"].values()
+                 if v.is_floating_point())
+    resumed = resume_one_process(ws, SHARDED_STEPS + 1)
+    del resumed["trainer"]
+    release_card()
+    if not finite or resumed["global_step"] != SHARDED_STEPS + 1 \
+            or not math.isfinite(resumed["logged"]["loss"]):
+        raise AssertionError(f"{EMERGENCY_RUN}: reassembled finite {finite}, resume {resumed}")
+    emit(info, phase="preempt", path=EMERGENCY_RUN, mesh=ranks[0]["mesh"],
+         errors=[r["exception"][:160] for r in ranks], shard_files=names,
+         shard_bytes=[r.get("shard_bytes") for r in ranks], shards_equal_live=True,
+         reassembled_params=len(state["model"]), resume_loss=resumed["logged"]["loss"],
+         resume_seconds=resumed["seconds"], seconds=ranks[0]["seconds"])
+    launches[EMERGENCY_RUN] = rank_launches(ranks)
+    launches[f"{EMERGENCY_RUN}_resume"] = resident_launches(resumed["launches"])
+    emit(info, phase="preempt", path="flag_all_reduce", boundaries=len(flag_ms),
+         later_rank_ms_median=statistics.median(flag_ms), later_rank_ms_max=max(flag_ms),
+         earlier_rank_ms_median=statistics.median(flag_wait_ms),
+         note="one int32 MAX over the two gloo ranks at each step boundary, host clock; the "
+              "earlier rank's time includes waiting for the later one")
+    emit(info, phase="preempt", path="summary", seconds=time.perf_counter() - t_phase)
+    return {"launches": launches}
+
+
+def warm_start_phase(info, source_ws: str) -> dict:
+    """A warm start from a port workspace directory an earlier phase wrote
+    (training.pretrained_checkpoint_path): one step in a fresh workspace at
+    the default recipe in fp32, B=4, with K1 and K2 launched; the weights
+    before the step must equal the source's newest checkpoint, the step
+    count start at 0 and the schedule's count carry over."""
+    from mine_tpu_torch.training import checkpoint as ckpt
+    from mine_tpu_torch.training.loop import Trainer
+
+    source = ckpt.load(source_ws, ckpt.latest_step(source_ws))
+    ws = os.path.join(PARALLEL_DIR, "warm_start")
+    start = Trainer._start
+    seen = {}
+
+    def recorded_start(self, steps_per_epoch):
+        out = start(self, steps_per_epoch)
+        seen["equal"] = all(torch.equal(v.cpu(), source["model"][k])
+                            for k, v in self.model.state_dict().items())
+        seen["schedule_count"] = self.scheduler.last_epoch
+        return out
+
+    Trainer._start = recorded_start
+    try:
+        run = resume_one_process(ws, 1, {"training.pretrained_checkpoint_path": source_ws})
+    finally:
+        Trainer._start = start
+    tr = run.pop("trainer")
+    del tr
+    release_card()
+    k = run["launches"]
+    if not seen.get("equal") or seen["schedule_count"] != source["scheduler"]["last_epoch"] \
+            or run["global_step"] != 1 or not math.isfinite(run["logged"]["loss"]) \
+            or k["warp_bilinear"] != 4 or k["warp_bilinear_grad"] != 4:
+        raise AssertionError(f"warm start from {source_ws}: {seen}, {run}")
+    emit(info, phase="warm_start", source=os.path.basename(source_ws),
+         source_step=source["global_step"], schedule_count=seen["schedule_count"],
+         weights_equal_source=True, loss=run["logged"]["loss"], launches=k,
+         seconds=run["seconds"])
+    return {"launches": {"warm_start": resident_launches(k)}}
 
 
 def sharded_state_phase(info, par: dict) -> dict:
@@ -2923,13 +3260,14 @@ def sharded_state_phase(info, par: dict) -> dict:
     two gloo ranks sharing the card (segments of the parallel phase's
     launch, `section12_segments`), the default recipe in fp32 at B=4:
     mesh.fsdp_parallel=2, and data=2 with parallel.zero1, SHARDED_STEPS
-    steps each. Each rank's resident parameter and Adam-moment bytes must
+    steps each (then preempted: preempt_phase, which runs first). Each
+    rank's resident parameter and Adam-moment bytes must
     equal the table's placement_bytes and lie below the replicated figure;
     the first step's loss terms and gradients are held against the
     parallel phase's data=2 run (the same batch split) at the tolerances
     the parallel phase holds data=2 to (1e-4, 5 %), and reported as
-    relative gaps; the fsdp=2 checkpoint, gathered on save, resumes in one
-    process for a step. Returns each run's launches."""
+    relative gaps; the fsdp=2 checkpoint, gathered by the preemption save,
+    resumes in one process for a step. Returns each run's launches."""
     from mine_tpu_torch.config import load_config
     from mine_tpu_torch.data.registry import build_dataset
     from mine_tpu_torch.training.loop import Trainer
@@ -3332,7 +3670,9 @@ def main() -> int:
     # two-rank training runs; then their checks and coarse-to-fine serving
     c2f_ref = coarse_to_fine_reference(info)
     par = parallel_phase(info, dev, entries[0], g1, section12_segments())
+    preempt = preempt_phase(info, par)
     sharded = sharded_state_phase(info, par)
+    warm = warm_start_phase(info, os.path.join(PARALLEL_DIR, "zero1_data2_fp32"))
     c2f_train = coarse_to_fine_train(info, par, c2f_ref)
     c2f_serve = coarse_to_fine_serve(info, dev, state, images[0], g1, swing[:4])
 
@@ -3551,7 +3891,8 @@ def main() -> int:
          share_of_bound=warp_rows["dense"]["bound_ms"] / statistics.median(spread["ms"]))
     paths = {**streaming["launches"], **data_launches, **serve["launches"],
              **fleet["launches"], **obs["launches"], **par["launches"],
-             **sharded["launches"], **c2f_train["launches"], **c2f_serve["launches"]}
+             **sharded["launches"], **preempt["launches"], **warm["launches"],
+             **c2f_train["launches"], **c2f_serve["launches"]}
 
     def launches_of(name: str, size_class: str) -> dict:
         """The launches of `name` at one TPU size class on each main path: the

@@ -326,11 +326,9 @@ def save_config(cfg: Config, path: str) -> None:
 
 def unsupported_training_options(cfg: Config) -> list[str]:
     """The options set away from their defaults that the port's training
-    path does not honour yet, each naming its ROADMAP queue 1 item."""
-    found = []
-    warm = cfg.training.pretrained_checkpoint_path
-    if warm and not warm.endswith(".npz"):
-        found.append(f"training.pretrained_checkpoint_path={warm!r}: the port warm-starts "
-                     "from a converted .npz; other checkpoint formats wait for ROADMAP "
-                     "queue 1 item 7")
-    return found
+    path does not honour, each naming its ROADMAP queue 1 item: none. Every
+    warm start is read: a converted .npz, and a workspace directory (the
+    port's own, or a JAX workspace once tools/jax_workspace_to_torch.py has
+    exported it; the JAX workspace itself is refused by name where it is
+    read, training/checkpoint.py)."""
+    return []

@@ -7,7 +7,10 @@ the val split (counterpart of mine_tpu/evaluate.py).
 The config is the params.yaml the training run archived, with
 --extra_config on top. Prints one JSON line: the step, every metric of the
 loss suite (PSNR, SSIM, LPIPS among them) averaged over the genuine val
-examples, and their count. Runs on the CUDA device unless --device cpu. A
+examples, and their count; the means as val/ scalars and the last batch's
+image grids (val/tgt_syn, val/src_syn, val/tgt_disparity) go to
+<checkpoint>/eval (metrics.jsonl, and TensorBoard events where tensorboardX
+imports). Runs on the CUDA device unless --device cpu. A
 workspace trained coarse-to-fine (mpi.num_bins_fine > 0) is evaluated
 through the coarse-to-fine forward (training/step.py loss_fcn), its fine
 draws from the eval generator after the disparities. A run trained under a
@@ -22,6 +25,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 
 import torch.distributed as dist
 
@@ -41,6 +45,7 @@ from mine_tpu_torch.training import checkpoint as ckpt
 from mine_tpu_torch.training.loop import run_evaluation
 from mine_tpu_torch.training.step import build_model
 from mine_tpu_torch.utils.device import resolve_device
+from mine_tpu_torch.utils.logging import MetricWriter
 
 
 def main(argv: list[str] | None = None) -> dict[str, float]:
@@ -78,7 +83,15 @@ def main(argv: list[str] | None = None) -> dict[str, float]:
         val_ds = build_dataset(cfg, "val", global_batch, host_slice=(
             host_batch_slice(mesh, global_batch) if data_replica_count(mesh) > 1 else None))
         lpips_params = load_lpips_params(cfg.training.lpips_weights_path, device)
-        result = run_evaluation(cfg, model, val_ds, device, lpips_params, step, plan=plan)
+        # rank 0 writes the val/ scalars and image grids under <checkpoint>/eval
+        writer = MetricWriter(os.path.join(args.checkpoint, "eval")) if process_index() == 0 \
+            else None
+        try:
+            result = run_evaluation(cfg, model, val_ds, device, lpips_params, step, plan=plan,
+                                    writer=writer)
+        finally:
+            if writer is not None:
+                writer.close()
         if process_index() == 0:
             print(json.dumps({"step": step, **{k: round(v, 6) for k, v in result.items()}}),
                   flush=True)

@@ -29,6 +29,7 @@ from mine_tpu_torch.training.step import (
     render_novel_view,
 )
 from mine_tpu_torch.utils.device import resolve_device
+from mine_tpu_torch.utils.logging import normalize_disparity_for_vis
 
 
 def fov_intrinsics(height: int, width: int, fov_deg: float = 90.0) -> np.ndarray:
@@ -120,11 +121,9 @@ def render_many(cfg: Config, mpi_rgb, mpi_sigma, disparity, k, poses: torch.Tens
 
 
 def normalize_disparity(disparity: np.ndarray) -> np.ndarray:
-    """Per-frame min-max normalisation to [0, 1] for display."""
-    d = np.asarray(disparity)
-    lo = d.min(axis=(1, 2, 3), keepdims=True)
-    hi = d.max(axis=(1, 2, 3), keepdims=True)
-    return np.clip((d - lo) / np.maximum(hi - lo, 1e-8), 0.0, 1.0)
+    """Per-frame min-max normalisation to [0, 1] for display (the eval
+    grids' normaliser, clipped)."""
+    return np.clip(normalize_disparity_for_vis(disparity), 0.0, 1.0)
 
 
 def to_uint8(img: np.ndarray) -> np.ndarray:

@@ -154,3 +154,15 @@ def broadcast_(tensors: list[torch.Tensor], group=None, src: int = 0) -> None:
             dist.broadcast(flat, src=src, group=group)
             for t, part in zip(same, flat.split([t.numel() for t in same])):
                 t.copy_(part.view_as(t))
+
+
+def all_reduce_max_int(value: int, group, device: torch.device) -> int:
+    """The largest of the ranks' `value` over the group: one int32
+    all-reduce, through a host tensor under gloo (no wait on the card), else
+    on `device`."""
+    if group is None:
+        return value
+    where = torch.device("cpu") if dist.get_backend(group) == "gloo" else device
+    flag = torch.tensor([value], dtype=torch.int32, device=where)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
+    return int(flag.item())

@@ -248,7 +248,7 @@ def sharded_optimizer_step(optimizer: torch.optim.Optimizer, scheduler,
 MOMENTS = ("exp_avg", "exp_avg_sq")
 
 
-def _optimizer_names(optimizer: torch.optim.Optimizer, model: torch.nn.Module) -> list[str]:
+def optimizer_names(optimizer: torch.optim.Optimizer, model: torch.nn.Module) -> list[str]:
     """The parameter name of each optimizer state index."""
     names = {id(p): n for n, p in model.named_parameters()}
     return [names[id(p)] for g in optimizer.param_groups for p in g["params"]]
@@ -294,7 +294,7 @@ def gathered_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer | No
             model_sd[name] = gather_placed(p.data, pl, mesh)
     if opt_sd is not None:
         state = {}
-        for idx, name in enumerate(_optimizer_names(optimizer, model)):
+        for idx, name in enumerate(optimizer_names(optimizer, model)):
             entry = dict(opt_sd["state"].get(idx, {}))
             upl = layout.updates[name]
             for m in MOMENTS:
@@ -322,7 +322,7 @@ def distribute_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer | 
             p.data = local_shard(p.data, pl, mesh).clone()
     if optimizer is None:
         return
-    for name, p in zip(_optimizer_names(optimizer, model),
+    for name, p in zip(optimizer_names(optimizer, model),
                        (p for g in optimizer.param_groups for p in g["params"])):
         upl, state = layout.updates[name], optimizer.state.get(p)
         if state is None or upl.replicated:

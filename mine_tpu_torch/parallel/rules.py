@@ -327,16 +327,22 @@ def torch_layout(rules: Iterable[Rule], model: torch.nn.Module, num_layers: int,
                  mesh_shape: Mapping[str, int], min_size: int) -> TorchLayout:
     """The table for `model`: each leaf resolved under its flax path and
     flax-ordered shape, the dimension translated back to the torch tensor's.
-    A BatchNorm statistic that a rule shards raises: the port keeps them
-    replicated."""
+    A BatchNorm statistic that a rule shards raises, as the JAX package
+    cannot train with such a row either: its step fails when flax's
+    BatchNorm adds a rank's (C/n,) running-statistic shard to the batch's
+    (C,) statistic (ROADMAP queue 3)."""
     leaves = model_leaves(model, num_layers)
     params = {lf.path: lf.shape for lf in leaves if lf.path.startswith("params/")}
     stats = {lf.path: lf.shape for lf in leaves if lf.path.startswith("batch_stats/")}
     placed = state_placements(rules, params, stats, mesh_shape, min_size)
     sharded_stats = [p for p, pl in placed["batch_stats"].items() if not pl.replicated]
     if sharded_stats:
-        raise NotImplementedError(f"a parallel.rules row shards BatchNorm statistics "
-                                  f"({sharded_stats[:2]}...); the port keeps them replicated")
+        raise NotImplementedError(
+            f"a parallel.rules row shards BatchNorm statistics ({sharded_stats[:2]}...); the "
+            "port keeps them replicated, as the JAX package must: its train step fails on "
+            "such a row with `TypeError: add got incompatible shapes for broadcasting` (flax "
+            "BatchNorm's running average adds the rank's statistic shard to the batch's "
+            "full statistic)")
     by_path = {lf.path: lf for lf in leaves}
     return TorchLayout(
         {by_path[p].name: _to_torch(pl, by_path[p]) for p, pl in placed["params"].items()},

@@ -25,6 +25,17 @@ the step it completed. Outside such a region the handler saves at once. A
 step takes 0.4-0.7 s at the default recipe on an H100, well inside a
 preemption's grace window.
 
+On several ranks (`collective=True`) a save is a collective: under a
+sharded layout every rank gathers the state, and a rank that saved alone
+would leave its peers blocked in their next collective. There the handler
+only records the request; the loop reads `pending()` at each step boundary,
+all-reduces it (MAX) over the ranks, and every rank calls `resolve()` with
+the result together: each saves (save_fn, a collective), then takes the
+signal's disposition as if it had received it: SIGTERM ends every rank as
+it ends one process, SIGUSR2 lets every rank continue. A SIGTERM that was
+recorded but never resolved (the run raised first) is re-delivered by
+`redeliver()` once the caller has cleaned up.
+
 `save_fn` failures are logged, never raised: a broken save must not block
 the chain.
 """
@@ -37,6 +48,9 @@ import threading
 from contextlib import contextmanager
 from typing import Any, Callable, Iterator
 
+# a request's weight in the ranks' MAX: termination outranks save-and-continue
+SEVERITY = {signal.SIGUSR2: 1, signal.SIGTERM: 2}
+
 
 class PreemptionGuard:
     def __init__(
@@ -44,14 +58,17 @@ class PreemptionGuard:
         save_fn: Callable[[str], None],
         logger: Any = None,
         signals: tuple[int, ...] = (signal.SIGTERM, signal.SIGUSR2),
+        collective: bool = False,
     ):
         self.save_fn = save_fn
         self.logger = logger
+        self.collective = collective
         self._signals = signals
         self._prev: dict[int, Any] = {}
         self.triggered: list[str] = []  # signal names handled, oldest first
         self._depth = 0  # open deferring() regions (main thread only)
         self._deferred: list[tuple[int, Any]] = []
+        self._requested: dict[int, Any] = {}  # collective: signum -> frame, unresolved
 
     def install(self) -> "PreemptionGuard":
         """Install handlers (main thread only, CPython's rule); a no-op off
@@ -92,12 +109,37 @@ class PreemptionGuard:
     def _on_signal(self, signum: int, frame: Any) -> None:
         name = signal.Signals(signum).name
         self.triggered.append(name)
+        if self.collective:
+            if self.logger is not None:
+                self.logger.warning("%s: saving with every rank at the next step boundary",
+                                    name)
+            self._requested[signum] = frame
+            return
         if self._depth > 0:
             if self.logger is not None:
                 self.logger.warning("%s inside a step: saving when it completes", name)
             self._deferred.append((signum, frame))
             return
         self._handle(signum, frame)
+
+    def pending(self) -> int:
+        """The strongest unresolved request (SEVERITY), 0 when none."""
+        return max((SEVERITY.get(sig, 0) for sig in self._requested), default=0)
+
+    def resolve(self, severity: int) -> None:
+        """The ranks' agreed request (the MAX of their `pending()`): save,
+        then the disposition of its signal, on every rank alike."""
+        signum = next(sig for sig, level in SEVERITY.items() if level == severity)
+        frame = self._requested.get(signum)
+        self._requested.clear()
+        self._handle(signum, frame)
+
+    def redeliver(self) -> None:
+        """Re-deliver a recorded SIGTERM that was never resolved, through
+        the handler restored by uninstall()."""
+        if signal.SIGTERM in self._requested:
+            self._requested.clear()
+            os.kill(os.getpid(), signal.SIGTERM)
 
     def _handle(self, signum: int, frame: Any) -> None:
         name = signal.Signals(signum).name

@@ -5,8 +5,10 @@ the loss dict logged every `training.log_interval` steps, checkpoints every
 once the sentinel has vetted it), eval over the val set every
 `training.eval_interval` steps and at the reference's first eval step 2000,
 auto-resume from the workspace (`training.resume_from`: latest | last_good),
-a warm start from a converted .npz, the sentinel's rollback loop, and an
-emergency checkpoint when a run dies (never masking the error). Batches come
+a warm start (a converted .npz, or a workspace: the port's own, or one that
+tools/jax_workspace_to_torch.py exported from the JAX package), the
+sentinel's rollback loop, and an emergency checkpoint when a run dies (never
+masking the error). Batches come
 through `staged_batches`: built `data.num_workers` ahead on a host thread, in
 page-locked memory, with `data.loader_retries` retries.
 
@@ -39,11 +41,19 @@ parallel.zero1 over more than one batch replica; parallel/rules.py) each
 rank holds its shards of the parameters and Adam moments between steps:
 `distribute_state` places the full state (first placement, warm start,
 restore) and a checkpoint gathers it on every rank before rank 0 writes it,
-so that checkpoints are layout-free. The preemption save and the emergency
-checkpoint, which run on one rank outside the step's collective order, are
-skipped under a sharded layout on more than one rank (the interval
-checkpoints remain). Multi-process survival (resilience/multihost.py): each rank beats a
-heartbeat file at its log intervals, a watchdog turns a dead or wedged peer
+so that checkpoints are layout-free. On more than one rank a preemption
+signal is a request that every rank honours together: the guard records it,
+each step boundary all-reduces the ranks' requests (one int32 MAX), and when
+any rank holds one every rank saves the last completed step (the gathered
+checkpoint, rank 0 writing) and takes the signal's disposition (SIGTERM ends
+every rank as it ends one process, SIGUSR2 lets all continue). The emergency
+checkpoint of a run that dies under a sharded layout on several ranks starts
+no collective, since a peer may be dead or blocked: each rank writes the
+shards it holds and the replicated rest to a file of its own
+(`checkpoints/<step>-r<rank>of<world>`), and the step counts once every
+rank's file verifies (training/checkpoint.py). Multi-process survival
+(resilience/multihost.py): each rank beats a heartbeat file at its log
+intervals, a watchdog turns a dead or wedged peer
 into a named abort (exit code 83), and the `host_kill`/`host_stall` chaos
 seams fire after a step.
 """
@@ -73,15 +83,18 @@ from mine_tpu_torch.obs.flight import FlightRecorder
 from mine_tpu_torch.obs.ledger import set_build_info
 from mine_tpu_torch.obs.memlog import MemLog
 from mine_tpu_torch.obs.trace import Tracer
+from mine_tpu_torch.parallel.comm import all_reduce_max_int
 from mine_tpu_torch.parallel.data_parallel import (
     distribute_state,
     gathered_state,
     load_full_params,
     make_plan,
     model_groups,
+    optimizer_names,
     with_layout,
 )
 from mine_tpu_torch.parallel.mesh import (
+    AXIS_NAMES,
     data_replica_count,
     host_batch_slice,
     make_mesh,
@@ -95,7 +108,7 @@ from mine_tpu_torch.resilience.chaos import PreemptedError
 from mine_tpu_torch.resilience.preempt import PreemptionGuard
 from mine_tpu_torch.resilience.sentinel import SentinelAbort, SentinelRollback, TrainingSentinel
 from mine_tpu_torch.training import checkpoint as ckpt
-from mine_tpu_torch.training.optimizer import make_optimizer
+from mine_tpu_torch.training.optimizer import lr_factor, make_optimizer
 from mine_tpu_torch.training.step import (
     batch_to_device,
     build_model,
@@ -104,7 +117,12 @@ from mine_tpu_torch.training.step import (
     train_step,
 )
 from mine_tpu_torch.utils.device import resolve_device
-from mine_tpu_torch.utils.logging import LOGGER_NAME, MetricWriter, make_logger
+from mine_tpu_torch.utils.logging import (
+    LOGGER_NAME,
+    MetricWriter,
+    make_logger,
+    normalize_disparity_for_vis,
+)
 from mine_tpu_torch.utils.metrics import MetricsRegistry
 
 logger = logging.getLogger(LOGGER_NAME)
@@ -170,7 +188,8 @@ def _to_host(values: Mapping[str, torch.Tensor]) -> dict[str, float]:
 
 def run_evaluation(cfg: Config, model: torch.nn.Module, val_ds: Any,
                    device: torch.device, lpips_params: dict | None = None,
-                   global_step: int = 0, plan=None) -> dict[str, float]:
+                   global_step: int = 0, plan=None,
+                   writer: MetricWriter | None = None) -> dict[str, float]:
     """The metric pass over the whole val set (epoch 0), shared by the
     train loop and `python -m mine_tpu_torch.evaluate`: every LOSS_KEYS
     value averaged over the genuine examples (each batch weighted by its
@@ -179,15 +198,20 @@ def run_evaluation(cfg: Config, model: torch.nn.Module, val_ds: Any,
     a generator seeded training.seed + 17. Batches are staged as in training
     (staged_batches, data.num_workers ahead, no retries). With a `plan`
     val_ds holds this rank's rows, and the count and the means are the whole
-    mesh's (eval_step)."""
+    mesh's (eval_step). A `writer` gets the means as val/ scalars, then the
+    last batch's first four synthesized target and source views and target
+    disparities (normalised) as the image grids val/tgt_syn, val/src_syn and
+    val/tgt_disparity, as the JAX package writes them (under a plan, of this
+    rank's rows)."""
     meters = {k: AverageMeter(k) for k in LOSS_KEYS}
     generator = torch.Generator().manual_seed(cfg.training.seed + 17)
     n_examples = 0
+    viz = None
     batches = staged_batches(val_ds.epoch(0), torch.device(device), cfg.data.num_workers)
     try:
         for batch in batches:
-            loss_dict, _ = eval_step(cfg, model, batch_to_device(batch, device), generator,
-                                     lpips_params, plan=plan)
+            loss_dict, viz = eval_step(cfg, model, batch_to_device(batch, device), generator,
+                                       lpips_params, plan=plan)
             host = _to_host({k: loss_dict[k] for k in LOSS_KEYS + ("eval_examples",)})
             n_batch = int(round(host.pop("eval_examples")))
             n_examples += n_batch
@@ -204,9 +228,18 @@ def run_evaluation(cfg: Config, model: torch.nn.Module, val_ds: Any,
     logger.info("eval @ %d: loss=%.4f loss_rgb_tgt=%.4f psnr_tgt=%.4f lpips_tgt=%.4f "
                 "(%d examples)", global_step, result["loss"], result["loss_rgb_tgt"],
                 result["psnr_tgt"], result["lpips_tgt"], n_examples)
+    if writer is not None:
+        writer.scalars(result, global_step, prefix="val/")
+        if viz is not None:
+            host_viz = {k: viz[k][:4].detach().float().cpu().numpy()
+                        for k in ("tgt_imgs_syn", "src_imgs_syn", "tgt_disparity_syn")}
+            writer.image_grid("val/tgt_syn", host_viz["tgt_imgs_syn"], global_step)
+            writer.image_grid("val/src_syn", host_viz["src_imgs_syn"], global_step)
+            writer.image_grid("val/tgt_disparity",
+                              normalize_disparity_for_vis(host_viz["tgt_disparity_syn"]),
+                              global_step)
+        writer.flush()
     return result
-
-
 
 
 class TrainObsMetrics:
@@ -271,9 +304,10 @@ class Trainer:
     a mesh, one rank of it (the module docstring).
 
     Weights are `state_dict` when given, else seeded random weights
-    (training.seed); a workspace checkpoint or an .npz warm start replaces
-    them in fit(). The stratified disparities and the sigma dropout masks
-    come from two CPU generators seeded from training.seed. Runs on CUDA
+    (training.seed); a workspace checkpoint or a warm start (an .npz, or a
+    workspace directory with its optimizer state) replaces them in fit().
+    The stratified disparities and the sigma dropout masks come from two
+    CPU generators seeded from training.seed. Runs on CUDA
     unless `device="cpu"` is asked for. Options the port does not honour
     yet raise here. `profile_steps` > 0 traces the first that many steps of
     fit() (the CLI's --profile-steps); otherwise obs.profile_steps traces a
@@ -362,6 +396,7 @@ class Trainer:
         # a sharded layout every rank decides from it whether to save (a
         # collective), never from a file rank 0 may not have finished writing
         self._saved_step: int | None = None
+        self._torn = False  # a failed step had begun its update (Trainer.step)
         self.generator = torch.Generator().manual_seed(cfg.training.seed)
         self.dropout_generator = torch.Generator().manual_seed(cfg.training.seed + 1)
         self.batch_size = cfg.data.per_gpu_batch_size
@@ -415,18 +450,46 @@ class Trainer:
     def _sharded_ranks(self) -> bool:
         return self.layout is not None and process_count() > 1
 
+    def rank_shard(self) -> dict[str, Any]:
+        """What this rank holds of the training state, on the host, with the
+        placements that put it together again (checkpoint.assemble_shards):
+        its parameter and Adam-moment shards, the replicated rest, the mesh
+        coordinates. No collective: the emergency checkpoint under a sharded
+        layout on several ranks."""
+        layout, mesh = self.layout, self.mesh
+
+        def placements(table) -> dict:
+            return {name: (pl.dim, list(pl.axes)) for name, pl in table.items()}
+
+        host = lambda sd: {k: v.detach().cpu() for k, v in sd.items()}  # noqa: E731
+        opt = self.optimizer.state_dict()
+        return {
+            "rank": self.rank, "world": process_count(), "global_step": self.global_step,
+            "mesh": {"shape": dict(mesh.shape),
+                     "coords": {ax: mesh.coordinate(ax) for ax in AXIS_NAMES}},
+            "layout": {"params": placements(layout.params),
+                       "updates": placements(layout.updates)},
+            "model": host(self.model.state_dict()),
+            "optimizer": dict(opt, state={i: {k: v.detach().cpu() if torch.is_tensor(v) else v
+                                              for k, v in entry.items()}
+                                          for i, entry in opt["state"].items()}),
+            "optimizer_names": optimizer_names(self.optimizer, self.model),
+            "scheduler": self.scheduler.state_dict(),
+            "generators": {"disparity": self.generator.get_state(),
+                           "dropout": self.dropout_generator.get_state()},
+        }
+
     def save_checkpoint(self) -> None:
         """Rank 0 writes; the other ranks hold the same state. Under a
-        sharded layout every rank gathers first."""
+        sharded layout every rank gathers first, and the step counts as
+        saved (`_has_checkpoint`) only once the gather has completed."""
+        if self.is_main or self.layout is not None:
+            state = self.state()
+            if self.is_main:
+                cfg = self.cfg.training
+                ckpt.save(self.workspace, state, self.global_step,
+                          keep_period=max(cfg.eval_interval // cfg.checkpoint_interval, 1))
         self._saved_step = self.global_step
-        if not self.is_main and self.layout is None:
-            return
-        state = self.state()
-        if not self.is_main:
-            return
-        cfg = self.cfg.training
-        ckpt.save(self.workspace, state, self.global_step,
-                  keep_period=max(cfg.eval_interval // cfg.checkpoint_interval, 1))
 
     def _has_checkpoint(self, step: int) -> bool:
         """Whether `step` is saved: under a sharded layout on several ranks
@@ -439,6 +502,32 @@ class Trainer:
     def _mark_last_good(self, step: int) -> None:
         if self.is_main:
             ckpt.mark_last_good(self.workspace, step)
+
+    def _warm_start_workspace(self, path: str, steps_per_epoch: int) -> None:
+        """Warm-start from a workspace's newest step as the JAX package does
+        from its own workspaces (mine_tpu/training/loop.py, ckpt.restore of
+        the whole train state): the parameters, BatchNorm statistics, Adam
+        moments and counts, the schedule's count and the generators carry
+        over, while this run counts its steps from 0 and keeps this config's
+        learning rates, the schedule's position recomputed for this run's
+        epoch length. The workspace is the port's own or one that
+        tools/jax_workspace_to_torch.py exported; a JAX workspace raises
+        OrbaxWorkspaceError, one with no checkpoint FileNotFoundError."""
+        step = ckpt.latest_step(path)
+        if step is None:
+            raise FileNotFoundError(f"training.pretrained_checkpoint_path={path!r} contains no "
+                                    "checkpoint")
+        state = ckpt.load(path, step)
+        self.model.load_state_dict(state["model"])
+        own = self.optimizer.state_dict()
+        self.optimizer.load_state_dict(dict(own, state=state["optimizer"]["state"]))
+        count = int(state["scheduler"]["last_epoch"])
+        self.scheduler.last_epoch = count
+        for group in self.optimizer.param_groups:
+            group["lr"] = group["initial_lr"] * lr_factor(self.cfg, steps_per_epoch, count)
+        self.generator.set_state(state["generators"]["disparity"])
+        self.dropout_generator.set_state(state["generators"]["dropout"])
+        logger.info("warm-started from %s @ step %d", path, step)
 
     def _warm_start(self, path: str, subtrees: tuple[str, ...]) -> None:
         """Load the subtrees of a converted .npz into the model (strict)."""
@@ -471,11 +560,13 @@ class Trainer:
             logger.info("resumed from step %d (epoch %d)", step, step // steps_per_epoch + 1)
             return step
         self.global_step = 0
-        if cfg.training.pretrained_checkpoint_path:
+        warm = cfg.training.pretrained_checkpoint_path
+        if warm and warm.endswith(".npz"):
             # backbone + decoder from a converted MINE checkpoint; the
             # optimizer, schedule and step start fresh
-            self._warm_start(cfg.training.pretrained_checkpoint_path,
-                             tuple(cfg.training.pretrained_subtrees))
+            self._warm_start(warm, tuple(cfg.training.pretrained_subtrees))
+        elif warm:
+            self._warm_start_workspace(warm, steps_per_epoch)
         elif cfg.model.imagenet_pretrained and cfg.model.pretrained_backbone_path:
             self._warm_start(cfg.model.pretrained_backbone_path, ("backbone",))
         if self.plan is not None:
@@ -491,6 +582,7 @@ class Trainer:
         if self.optimizer is None:
             raise RuntimeError("Trainer.step before fit(): the optimizer needs the epoch length")
         states = self.generator.get_state(), self.dropout_generator.get_state()
+        count = self.scheduler.last_epoch
         try:
             out = train_step(self.cfg, self.model, self.optimizer, self.scheduler,
                              batch_to_device(batch, self.device), self.generator,
@@ -498,6 +590,9 @@ class Trainer:
         except BaseException:
             self.generator.set_state(states[0])
             self.dropout_generator.set_state(states[1])
+            # an update that began (the schedule stepped) and failed in its
+            # gathers has left no completed step in memory
+            self._torn = self.scheduler.last_epoch != count
             raise
         self.global_step += 1
         return out
@@ -507,15 +602,14 @@ class Trainer:
         mode after it."""
         try:
             result = run_evaluation(self.cfg, self.model, val_ds, self.device,
-                                    self.lpips_params, self.global_step, plan=self.plan)
+                                    self.lpips_params, self.global_step, plan=self.plan,
+                                    writer=self.writer)
         finally:
             self.model.train()
         self.evals.append((self.global_step, result))
         if self.workspace and self.is_main:
             with open(os.path.join(self.workspace, "eval_log.jsonl"), "a") as fh:
                 fh.write(json.dumps({"global_step": self.global_step, **result}) + "\n")
-        if self.writer is not None:
-            self.writer.scalars(result, self.global_step, prefix="val/")
         return result
 
     # -- preemption and evidence ----------------------------------------------
@@ -530,22 +624,32 @@ class Trainer:
         thread outside any step: the last completed step, unless it is on
         disk already; the last-good pointer moves only when the sentinel
         vets the step (vet() never raises: a bad verdict waits for the next
-        check())."""
-        if not self.workspace or self.optimizer is None or not self.is_main:
-            return
-        if self._sharded_ranks():
-            logger.warning("preemption save skipped: a sharded layout gathers its checkpoint "
-                           "on every rank, outside this one rank's signal handler")
+        check()). On several ranks every rank runs it together at a step
+        boundary (`_preempt_boundary`): the checkpoint's gather is a
+        collective, and rank 0 writes."""
+        if not self.workspace or self.optimizer is None:
             return
         step = self.global_step
         logger.warning("preemption save (%s): persisting step %d", reason, step)
-        if step not in ckpt.all_steps(self.workspace):
+        if not self._has_checkpoint(step):
             self.save_checkpoint()
         if self.sentinel.vet(step):
             self._mark_last_good(step)
         else:
             logger.warning("preemption save: step %d saved but NOT marked last-good "
                            "(unvetted non-finite flags)", step)
+
+    def _preempt_boundary(self) -> None:
+        """On several ranks, at a step boundary: the ranks' recorded
+        preemption requests all-reduced (MAX, one int32), and when any rank
+        holds one, every rank saves and takes its disposition together
+        (PreemptionGuard.resolve). Every rank calls it at the same points."""
+        guard = self._guard
+        if guard is None or not guard.collective:
+            return
+        agreed = all_reduce_max_int(guard.pending(), self.mesh.world_group, self.device)
+        if agreed:
+            guard.resolve(agreed)
 
     def _flight_status(self) -> dict:
         """What a flight dump's meta.json records about this trainer: the
@@ -687,7 +791,9 @@ class Trainer:
         # after the flight recorder, so that its SIGTERM handler chains:
         # save -> flight dump -> re-delivered termination
         if self.cfg.resilience.preempt_save:
-            self._guard = PreemptionGuard(self._preempt_save, logger=logger).install()
+            self._guard = PreemptionGuard(self._preempt_save, logger=logger,
+                                          collective=process_count() > 1).install()
+        guard = self._guard
         fit_ok = False
         try:
             out = self._fit_epochs(train_ds, val_ds, start, max_steps)
@@ -702,13 +808,22 @@ class Trainer:
             # persist the last completed step so that the next run resumes;
             # a failing save must not mask the original error
             try:
-                if self._sharded_ranks():
-                    logger.exception("training interrupted at step %d; no emergency checkpoint "
-                                     "under a sharded layout on several ranks", self.global_step)
-                elif self.workspace and self.global_step not in ckpt.all_steps(self.workspace):
+                if not self.workspace or self.optimizer is None \
+                        or self._has_checkpoint(self.global_step):
+                    pass
+                elif not self._sharded_ranks():
                     logger.exception("training interrupted at step %d; writing an emergency "
                                      "checkpoint", self.global_step)
                     self.save_checkpoint()
+                elif self._torn:
+                    logger.exception("training interrupted inside step %d's update; this rank "
+                                     "holds no completed step to save", self.global_step + 1)
+                else:
+                    # no collective: each rank writes what it holds
+                    logger.exception("training interrupted at step %d; writing rank %d's "
+                                     "emergency shards", self.global_step, self.rank)
+                    ckpt.save_rank_shard(self.workspace, self.rank_shard(), self.global_step,
+                                         self.rank, process_count())
             except BaseException:  # noqa: BLE001 - incl. a second interrupt
                 logger.exception("emergency checkpoint failed")
             if self.multihost is not None and self.multihost.peer_aborted():
@@ -734,6 +849,8 @@ class Trainer:
                 self.writer = None
             if self.workspace and self.is_main:
                 make_logger(None)  # closes train.log
+            if guard is not None:
+                guard.redeliver()  # a SIGTERM recorded but never resolved
 
     def _fit_epochs(self, train_ds, val_ds, start: int, max_steps: int | None) -> dict:
         """The rollback loop: a SentinelRollback restores the last-good
@@ -895,6 +1012,8 @@ class Trainer:
                     if val_ds is not None and (self.global_step == FIRST_EVAL_STEP
                                                or self.global_step % tcfg.eval_interval == 0):
                         self.evaluate(val_ds)
+                    # the step's boundary: its log, checkpoint and eval are done
+                    self._preempt_boundary()
                     if done:
                         break
             finally:
@@ -918,6 +1037,7 @@ class Trainer:
                 if not self._has_checkpoint(self.global_step):
                     self.save_checkpoint()
                 self._mark_last_good(self.global_step)
+        self._preempt_boundary()  # a request that came in after the last step
         if self.writer is not None:
             self.writer.flush()
         return logged

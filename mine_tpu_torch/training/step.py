@@ -469,9 +469,9 @@ def train_step(cfg: Config, model: MPINetwork, optimizer: torch.optim.Optimizer,
     from mine_tpu_torch.parallel import data_parallel as dp
 
     layout = None if plan is None else plan.layout
-    if layout is not None:
-        dp.gather_params(model, layout, plan.mesh)
     try:
+        if layout is not None:
+            dp.gather_params(model, layout, plan.mesh)
         return _train_step(cfg, model, optimizer, scheduler, batch, generator,
                            dropout_generator, plan, fine_u)
     except BaseException:

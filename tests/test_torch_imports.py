@@ -46,6 +46,21 @@ def test_no_port_file_imports_jax_or_the_jax_package():
     assert not {f: m for f, m in bad.items() if m}
 
 
+def test_only_the_workspace_exporter_imports_both_packages():
+    """Outside the tests, the one file that imports both the port and the
+    JAX package is tools/jax_workspace_to_torch.py (it runs where orbax
+    does)."""
+    both = []
+    for root, dirs, names in os.walk(REPO):
+        dirs[:] = [d for d in dirs if d not in {".git", "tests", "build"}]
+        for name in names:
+            if name.endswith(".py"):
+                path = os.path.join(root, name)
+                if {"mine_tpu", "mine_tpu_torch"} <= _imported_roots(path):
+                    both.append(os.path.relpath(path, REPO))
+    assert both == [os.path.join("tools", "jax_workspace_to_torch.py")]
+
+
 def test_import_and_cpu_run_leave_jax_unloaded(tmp_path):
     """Import every module of the port and run a CPU predict/render and a
     CPU train step in a fresh interpreter; neither jax nor mine_tpu may end

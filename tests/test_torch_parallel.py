@@ -741,8 +741,9 @@ def test_parallel_config_group_is_loaded_and_refused_by_name():
     """The parallel group reaches the config whole, with the JAX loader's
     values, and an unknown key of it raises. Since the sharded-state slice
     zero1, non-empty rules and an fsdp axis are honoured (no refusal names
-    them); a warm start that is not a converted .npz is still refused by
-    name."""
+    them); since the JAX-workspace slice a warm start from a workspace
+    directory is honoured too, and a JAX workspace is refused by name where
+    it is read (tests/test_torch_warm_start.py)."""
     from mine_tpu.config import load_config as jax_load_config
     from mine_tpu_torch.config import load_config, unsupported_training_options
 
@@ -755,10 +756,8 @@ def test_parallel_config_group_is_loaded_and_refused_by_name():
     assert unsupported_training_options(cfg) == []
     assert unsupported_training_options(load_config(default, overrides={
         "mesh.fsdp_parallel": 2, "mpi.num_bins_fine": 8})) == []
-    warm = unsupported_training_options(load_config(default, overrides={
-        "training.pretrained_checkpoint_path": "/nowhere/orbax_run"}))
-    assert len(warm) == 1 and "pretrained_checkpoint_path" in warm[0] \
-        and "queue 1 item 7" in warm[0]
+    assert unsupported_training_options(load_config(default, overrides={
+        "training.pretrained_checkpoint_path": "/nowhere/orbax_run"})) == []
     assert unsupported_training_options(load_config(default, overrides={
         "mesh.data_parallel": 2, "mesh.plane_parallel": 4})) == []
     with pytest.raises(KeyError, match="unknown config key"):

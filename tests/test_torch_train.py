@@ -474,7 +474,10 @@ def test_train_cli_runs_two_steps_on_the_cpu(tmp_path):
 
 def test_unhonoured_options_raise_naming_the_roadmap_item():
     """What the port does not honour yet raises, naming its ROADMAP queue 1
-    item (a warm start that is not a converted .npz); accumulation, sigma
+    item: nothing is left. A warm start from a workspace directory is
+    honoured since the JAX-workspace slice (tests/test_torch_warm_start.py):
+    a path that holds no checkpoint raises by name when fit() reads it, as
+    the JAX package's warm start does. Accumulation, sigma
     dropout, remat, the sentinel and an .npz warm start are honoured now
     (tests/test_torch_accum.py, test_torch_remat.py,
     test_torch_checkpoint.py), the data and plane mesh axes since the
@@ -485,10 +488,13 @@ def test_unhonoured_options_raise_naming_the_roadmap_item():
     count."""
     from mine_tpu_torch.training.loop import Trainer
 
+    from mine_tpu_torch.data.synthetic import SyntheticDataset
+
     cfg = Config().replace(**TINY, **{"training.pretrained_checkpoint_path":
                                       "/nowhere/orbax_run"})
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
-        Trainer(cfg, device="cpu")
+    with pytest.raises(FileNotFoundError, match="'/nowhere/orbax_run' contains no checkpoint"):
+        Trainer(cfg, device="cpu").fit(SyntheticDataset(128, 128, 2, steps_per_epoch=1),
+                                       max_steps=1)
     for axis in ("plane_parallel", "fsdp_parallel"):
         with pytest.raises(ValueError, match=f"{axis}=2 must divide 1 devices"):
             Trainer(Config().replace(**TINY, **{f"mesh.{axis}": 2}), device="cpu")
