@@ -124,6 +124,23 @@ From the root of a checkout, on a machine with a CUDA device and nvcc:
      rank writes its own verified shard file, step 2 counts and resumes in
      one process), and a warm start from the ZeRO-1 run's workspace (one
      step, K1 and K2 launched);
+ 13. trains to quality (quality_phase; the harnesses of mine_tpu_torch/tools/
+     as the CLIs a user runs, started before section 4 in the background
+     and collected after section 12): the oracle ceiling at S = 8, 16, 32,
+     dense and streaming, each row equal to the same row on the CPU and to
+     each other (1e-2 dB), the source pose >= 100 dB; the fp32 convergence
+     run (128x128, ResNet-18, S=8, B=4, 2200 steps, 3 held-out scenes every
+     100 steps), finite loss, 4 K1 and 4 K2 launches a step, the median
+     novel-pose PSNR of its last 5 evals >= 16.0 dB and >= the median of its
+     first 3 + 1.0 dB, its save scored again here under streaming (K5 once a
+     pose) to 1e-2 dB of the run's score, K5 held on one of those poses; the bf16 run of the same
+     recipe (finite loss, its gap to fp32 at equal steps reported);
+     disocclusion_analysis on the fp32 save (the oracle's keys equal the
+     CPU's); the end-to-end chain through the train and evaluate CLIs (900
+     steps), both exit 0 and val PSNR >= 12.0 dB; every figure beside the
+     JAX package's (fp32, CPU, BASELINE.md); then, on a card nothing else
+     uses, the convergence harness's step time with its batches built
+     inline (as the JAX harness builds them) against batch_feed's;
  11. times every kernel (CUDA events), its plain version and, for the warp
      and its backward, torch's grid_sample, beside each kernel's memory
      bound (the backward also on the captured training operands; the
@@ -133,7 +150,10 @@ From the root of a checkout, on a machine with a CUDA device and nvcc:
      coordinate-form prep the streaming render no longer runs (device time
      sums kernels and copies only, not the profiler's annotation ranges; a
      busy share above 1 fails the phase).
-Every result line is JSON and carries the card's name and power limit; the
+Every result line is JSON and carries the card's name and power limit; a
+line emitted while section 13's CLIs may still run beside it (from their
+start before section 4 to the end of their collection) carries
+"contended": true, its timings taken on a shared card and host. The
 last line is {"ok": true, "device": {...}}. Any failure raises and the exit
 code is not 0. Without a CUDA device, or outside a checkout, it exits non-zero
 before printing any result.
@@ -158,6 +178,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_FLOPS = 67e12  # H100 SXM fp32 rate outside the tensor cores
 TOL = dict(rtol=1e-5, atol=1e-5)
 T_START = time.perf_counter()
+# true from start_quality_runs to the end of quality_phase's collection: the
+# quality CLIs may run beside whatever is measured meanwhile
+CONTENDED = False
 
 
 def card() -> dict:
@@ -170,6 +193,8 @@ def card() -> dict:
 
 
 def emit(info: dict, **fields) -> None:
+    if CONTENDED:
+        fields["contended"] = True
     print(json.dumps({**fields, "gpu": info["gpu"], "power_limit": info["power_limit"],
                       "elapsed_s": time.perf_counter() - T_START}), flush=True)
 
@@ -3422,6 +3447,325 @@ def coarse_to_fine_serve(info, dev, state: dict, image: np.ndarray, g1: torch.Te
             "k5_err": k5_err, "k5_launches": launches["warp_composite"]}
 
 
+# 13. the quality harnesses (mine_tpu_torch/tools/), run as the CLIs a user runs
+QUALITY_DIR = os.path.join(ROOT, "build", "chip_smoke", "quality")
+QUALITY_STEPS = {"fp32": 2200, "bf16": 2200}  # the JAX long run's recipe (BASELINE.md:66)
+QUALITY_EVAL_EVERY = 100
+QUALITY_E2E_EPOCHS = 300  # 3 steps an epoch: 900 steps, as BASELINE.md:72's longer run
+QUALITY_PLANES = (8, 16, 32)
+QUALITY_DB = 1e-2  # the agreement the phase holds PSNRs to, dB
+# the median novel-pose PSNR of the fp32 run's last QUALITY_TAIL evals must
+# reach QUALITY_FP32_MIN_DB and gain QUALITY_GAIN_DB over the median of its
+# first QUALITY_HEAD evals: one eval moves +-1.5 dB or more from the next as
+# the weights do, a median of a few moves less; the end-to-end chain's val
+# PSNR must reach QUALITY_E2E_MIN_DB
+QUALITY_FP32_MIN_DB, QUALITY_GAIN_DB, QUALITY_E2E_MIN_DB = 16.0, 1.0, 12.0
+QUALITY_HEAD, QUALITY_TAIL = 3, 5
+# steps of each arm of the batch-feed comparison (inline, feed, feed, inline),
+# timed in blocks of ARM_BLOCK
+ARM_STEPS, ARM_BLOCK = 30, 10
+# the JAX package's figures (fp32, on a 1-core CPU host), reported beside the card's
+JAX_QUALITY = {
+    "source": "JAX package, fp32, CPU (BASELINE.md)",
+    "convergence": {"where": "BASELINE.md:64,66", "untrained": 13.2, "step_1000": 16.9,
+                    "step_2200": 18.30, "curve_every_100": [
+                        15.6, 15.9, 16.0, 16.5, 17.2, 17.4, 16.5, 15.6, 16.9, 17.1, 15.7,
+                        16.9, 17.2, 18.0, 17.6, 17.8, 17.8, 17.2, 17.4, 18.5, 17.9, 18.3]},
+    "oracle": {"where": "BASELINE.md:65", "S=8 soft": 20.4, "S=8 hard": 19.2, "S=16": 19.9,
+               "S=32": 19.6, "psnr_src_pose": 119},
+    "disocclusion": {"where": "BASELINE.md:99", "planes": "4 coarse + 4 fine, 400 steps",
+                     "oracle_visible": 35.1, "oracle_disoccluded": 6.2,
+                     "trained_disoccluded": 10.7, "inpainting_gain_db": 4.4},
+    "e2e": {"where": "BASELINE.md:72", "val_psnr_360_steps": 12.38, "val_psnr_900_steps": 14.19},
+}
+BACKGROUND: list[subprocess.Popen] = []  # stopped when the script ends, however it ends
+
+
+def background_cli(name: str, argv: list[str]) -> dict:
+    """`python -m <argv>` from the checkout's root in the background, its
+    stdout and stderr to files under QUALITY_DIR."""
+    out_path, err_path = (os.path.join(QUALITY_DIR, f"{name}.{s}") for s in ("out", "err"))
+    with open(out_path, "w") as out, open(err_path, "w") as err:
+        proc = subprocess.Popen([sys.executable, "-m", *argv], cwd=ROOT, stdout=out,
+                                stderr=err, text=True)
+    BACKGROUND.append(proc)
+    return {"name": name, "proc": proc, "t0": time.perf_counter(), "out": out_path,
+            "err": err_path}
+
+
+def finish_cli(run: dict, timeout_s: float = 900.0) -> tuple[dict, float]:
+    """(verdict, seconds since its start) of a background CLI: its last stdout
+    line. Raises unless it exits 0 with a verdict whose ok is true."""
+    rc = run["proc"].wait(timeout=timeout_s)
+    seconds = time.perf_counter() - run["t0"]
+    with open(run["out"]) as fh:
+        lines = fh.read().strip().splitlines()
+    verdict = json.loads(lines[-1]) if lines else {}
+    if rc != 0 or not verdict.get("ok"):
+        with open(run["err"]) as fh:
+            tail = fh.read()[-3000:]
+        raise AssertionError(f"quality {run['name']}: exit {rc}, verdict {verdict}:\n{tail}")
+    return verdict, seconds
+
+
+def stop_background() -> None:
+    for proc in BACKGROUND:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def start_quality_runs() -> dict:
+    """Start the quality phase's CLIs in the background: the fp32 and bf16
+    convergence runs (2200 steps each), the end-to-end chain through the
+    train and evaluate CLIs (900 steps) and the oracle ceiling, dense and
+    streaming. Each harness step is bound by the host's launch rate (~120 ms
+    at 128x128 on the H100's host), so the runs share the card with each
+    other and with the sections that follow, whose ranks and drills leave
+    the card and the host's cores partly idle. Every line emitted from here
+    to the end of quality_phase's collection is tagged contended."""
+    import shutil
+
+    global CONTENDED
+    CONTENDED = True
+    shutil.rmtree(QUALITY_DIR, ignore_errors=True)
+    os.makedirs(QUALITY_DIR)
+    runs = {}
+    for label, steps in QUALITY_STEPS.items():
+        argv = ["mine_tpu_torch.tools.convergence_run", "--steps", str(steps),
+                "--eval-every", str(QUALITY_EVAL_EVERY), "--eval-phases", "3",
+                "--out", os.path.join(QUALITY_DIR, label),
+                "--dtype", "float32" if label == "fp32" else "bfloat16"]
+        if label == "fp32":
+            argv += ["--save-final", os.path.join(QUALITY_DIR, "fp32_final.pt")]
+        runs[label] = background_cli(label, argv)
+    runs["e2e"] = background_cli("e2e", [
+        "mine_tpu_torch.tools.e2e_quality_run", "--epochs", str(QUALITY_E2E_EPOCHS),
+        "--out", os.path.join(QUALITY_DIR, "e2e")])
+    for compositor in ("dense", "streaming"):
+        runs[f"oracle_{compositor}"] = background_cli(f"oracle_{compositor}", [
+            "mine_tpu_torch.tools.oracle_mpi_ceiling", "--compositor", compositor,
+            "--planes", *map(str, QUALITY_PLANES)])
+    return runs
+
+
+def check_convergence(label: str, verdict: dict) -> list[dict]:
+    """A convergence run's curve: an eval every QUALITY_EVAL_EVERY steps, a
+    finite loss at each, K1 and K2 launched 4 times a step (one render per
+    scale) and K1 once more per eval render (3 scenes x 3 poses), no K5."""
+    steps = QUALITY_STEPS[label]
+    with open(os.path.join(QUALITY_DIR, label, "curve.jsonl")) as fh:
+        curve = [json.loads(ln) for ln in fh]
+    if [r["step"] for r in curve] != list(range(QUALITY_EVAL_EVERY, steps + 1,
+                                                QUALITY_EVAL_EVERY)) \
+            or not all(math.isfinite(r["loss"]) and math.isfinite(r["psnr_novel"])
+                       for r in curve):
+        raise AssertionError(f"quality {label}: curve {curve}")
+    want = {"warp_bilinear": 4 * steps + 9 * len(curve), "warp_bilinear_grad": 4 * steps,
+            "warp_composite": 0}
+    if verdict["launches"] != want:
+        raise AssertionError(f"quality {label}: launches {verdict['launches']}, want {want}")
+    return curve
+
+
+def quality_phase(info, dev, runs: dict) -> dict:
+    """The quality harnesses' results (their CLIs started by
+    start_quality_runs), each held where the port must agree with itself or
+    with the CPU, and reported beside the JAX package's figures:
+      * the oracle ceiling at S = 8, 16, 32: every row equal to the same row
+        computed in this process on the CPU (plain versions) and dense equal
+        to streaming (the chunked K1 scan), to 1e-2 dB; the source-pose
+        render >= 100 dB;
+      * the fp32 convergence run: finite loss at every eval, its launches,
+        the median novel-pose PSNR of its last 5 evals >= 16.0 dB and >= the
+        median of its first 3 + 1.0 dB;
+        its saved model scored again here under the streaming compositor (K5
+        once a pose), equal to the run's final score to 1e-2 dB, and K5 on one
+        of those poses held against its plain version;
+      * the bf16 run: finite loss at every eval, its launches; its gap to the
+        fp32 curve at equal steps reported;
+      * disocclusion_analysis on the fp32 save: the oracle's keys equal to the
+        CPU's (1e-2 dB), the disoccluded pixel share exactly;
+      * the end-to-end chain: both CLIs exit 0, held-out val PSNR >= 12.0 dB;
+    then, with the CLIs done, feed_vs_inline. Returns the launches of each
+    path and K5's inputs for the timing."""
+    from mine_tpu_torch.data.synthetic import _intrinsics, _render_view
+    from mine_tpu_torch.inference.trajectory import poses_from_offsets
+    from mine_tpu_torch.inference.video import predict_blended_mpi
+    from mine_tpu_torch.ops.geometry import inverse_3x3
+    from mine_tpu_torch.ops.kernels import warp as kw
+    from mine_tpu_torch.ops.mpi_render import streaming_matrices
+    from mine_tpu_torch.ops.sampling import fixed_disparity_linspace
+    from mine_tpu_torch.tools import convergence_run as qc
+    from mine_tpu_torch.tools.disocclusion_analysis import analyse
+    from mine_tpu_torch.tools.oracle_mpi_ceiling import SRC_POSE_MIN_DB, oracle_rows
+
+    global CONTENDED
+    t_phase = time.perf_counter()
+    out = {"launches": {}}
+    h = w = 128
+
+    # 1. the oracle ceiling, against the same rows on the CPU
+    cpu_rows = oracle_rows(QUALITY_PLANES, h, w, 0.2, "cpu")
+    oracle = {c: finish_cli(runs[f"oracle_{c}"]) for c in ("dense", "streaming")}
+    gaps = {}
+    for c, (verdict, _) in oracle.items():
+        rows = verdict["rows"]
+        if [(r["planes"], r["variant"]) for r in rows] != \
+                [(r["planes"], r["variant"]) for r in cpu_rows]:
+            raise AssertionError(f"quality oracle {c}: rows {rows}")
+        gaps[f"{c}_vs_cpu"] = max(abs(r[k] - q[k]) for r, q in zip(rows, cpu_rows)
+                                  for k in ("psnr_novel", "psnr_src_pose"))
+        out["launches"][f"quality_oracle_{c}"] = resident_launches(verdict["launches"])
+    gaps["dense_vs_streaming"] = max(
+        abs(r[k] - q[k]) for r, q in zip(oracle["dense"][0]["rows"], oracle["streaming"][0]["rows"])
+        for k in ("psnr_novel", "psnr_src_pose"))
+    src_pose = min(r["psnr_src_pose"] for v, _ in oracle.values() for r in v["rows"])
+    if max(gaps.values()) > QUALITY_DB or src_pose < SRC_POSE_MIN_DB:
+        raise AssertionError(f"quality oracle: gaps {gaps} dB, source pose {src_pose} dB")
+    emit(info, phase="quality", part="oracle_ceiling", planes=list(QUALITY_PLANES),
+         rows={c: [{k: r[k] for k in ("planes", "variant", "psnr_novel", "psnr_src_pose")}
+                   for r in v["rows"]] for c, (v, _) in oracle.items()},
+         gaps_db=gaps, tolerance_db=QUALITY_DB, launches={c: v["launches"]
+                                                         for c, (v, _) in oracle.items()},
+         seconds={c: s for c, (_, s) in oracle.items()}, jax_reference=JAX_QUALITY["oracle"])
+
+    # 2. the fp32 convergence run, then its save scored again under streaming
+    fp32, fp32_s = finish_cli(runs["fp32"])
+    curve = check_convergence("fp32", fp32)
+    first = curve[0]["psnr_novel"]
+    head = statistics.median(r["psnr_novel"] for r in curve[:QUALITY_HEAD])
+    tail = statistics.median(r["psnr_novel"] for r in curve[-QUALITY_TAIL:])
+    if not (tail >= QUALITY_FP32_MIN_DB and tail >= head + QUALITY_GAIN_DB):
+        raise AssertionError(f"quality fp32: median of the last {QUALITY_TAIL} evals {tail} dB, "
+                             f"of the first {QUALITY_HEAD} {head} dB: want >= "
+                             f"{QUALITY_FP32_MIN_DB} and >= +{QUALITY_GAIN_DB}")
+    out["launches"]["quality_fp32"] = resident_launches(fp32["launches"])
+    save = os.path.join(QUALITY_DIR, "fp32_final.pt")
+    scored = {}
+    for compositor in ("dense", "streaming"):
+        cfg = qc.build_cfg(h, w, 1, 8, compositor=compositor)
+        model = qc.load_model(cfg, save, dev)
+        torch.cuda.synchronize()
+        kw.reset_launches()
+        scored[compositor] = qc.eval_novel_pose_psnr(cfg, model, qc.HELDOUT_PHASES)
+        torch.cuda.synchronize()
+        scored[compositor]["launches"] = dict(kw.launches)
+    n_renders = len(qc.HELDOUT_PHASES) * len(qc.NOVEL_OFFSETS)
+    stream_gap = abs(scored["streaming"]["psnr_novel"] - fp32["psnr_novel"])
+    if scored["streaming"]["launches"] != {"warp_bilinear": 0, "warp_bilinear_grad": 0,
+                                           "warp_composite": n_renders} \
+            or stream_gap > QUALITY_DB:
+        raise AssertionError(f"quality fp32 under streaming: {scored}, the run's final "
+                             f"{fp32['psnr_novel']} dB")
+    out["launches"]["quality_eval_streaming"] = resident_launches(scored["streaming"]["launches"])
+    out["k5_launches"] = n_renders
+    # K5 on the first held-out scene's MPI at the first novel pose
+    k_np = _intrinsics(h, w)
+    k = torch.from_numpy(k_np)[None].to(dev)
+    src, _ = _render_view(h, w, k_np, np.zeros(3), qc.HELDOUT_PHASES[0])
+    disparity = fixed_disparity_linspace(1, 8, 1.0, 0.2, dev)
+    mpi_rgb, mpi_sigma = predict_blended_mpi(cfg, model, torch.from_numpy(src)[None].to(dev),
+                                             disparity, k)
+    g = torch.from_numpy(poses_from_offsets(qc.NOVEL_OFFSETS[:1])).to(dev)
+    out["k5_in"] = (mpi_rgb.contiguous(), mpi_sigma.contiguous(),
+                    *streaming_matrices(disparity, g, inverse_3x3(k), k))
+    out["k5_err"] = check_close("warp_composite (quality eval, S=8, 128x128)",
+                                kw.warp_composite(*out["k5_in"]),
+                                kw.warp_composite_matrix_plain(*out["k5_in"]), **TOL)
+    del model
+    emit(info, phase="quality", part="convergence_fp32", steps=fp32["steps"],
+         final_psnr_novel=fp32["psnr_novel"], psnr_per_pose=fp32["psnr_per_pose"],
+         final_loss=fp32["final_loss"], step_100_psnr_novel=first,
+         head_median_db=head, tail_median_db=tail, head_evals=QUALITY_HEAD,
+         tail_evals=QUALITY_TAIL,
+         curve=[[r["step"], r["loss"], r["psnr_novel"]] for r in curve],
+         step_ms_median=fp32["step_ms_median"], wall_s=fp32["wall_s"], cli_seconds=fp32_s,
+         peak_gb=fp32["peak_gb"], launches=fp32["launches"],
+         rescored={c: {"psnr_novel": v["psnr_novel"], "launches": v["launches"]}
+                   for c, v in scored.items()},
+         streaming_vs_run_db=stream_gap, k5_err=out["k5_err"], tolerance=TOL,
+         jax_reference=JAX_QUALITY["convergence"])
+
+    # 3. disocclusion on the fp32 save, its oracle keys against the CPU's
+    t0 = time.perf_counter()
+    lines = run_cli(["mine_tpu_torch.tools.disocclusion_analysis", "--params", save,
+                     "--out", ""]).stdout.strip().splitlines()
+    dis_s = time.perf_counter() - t0
+    dis = json.loads(lines[-1])
+    cpu = analyse(qc.load_model(qc.build_cfg(h, w, 1, 8), save, "cpu"), 8, 0, 18, h, w, 0.2)
+    dis_gap = max(abs(dis[k] - cpu[k]) for k in ("oracle_visible", "oracle_disoccluded"))
+    if not dis["ok"] or dis_gap > QUALITY_DB \
+            or dis["disoccluded_px_frac"] != cpu["disoccluded_px_frac"]:
+        raise AssertionError(f"quality disocclusion: card {dis}, cpu {cpu}")
+    out["launches"]["quality_disocclusion"] = resident_launches(dis["launches"])
+    emit(info, phase="quality", part="disocclusion", planes=8,
+         card={k: v for k, v in dis.items() if k not in ("metric", "launches")},
+         cpu={k: v for k, v in cpu.items() if k != "metric"}, oracle_gap_db=dis_gap,
+         launches=dis["launches"], seconds=dis_s, jax_reference=JAX_QUALITY["disocclusion"])
+
+    # 4. the bf16 run, against the fp32 curve at equal steps
+    bf16, bf16_s = finish_cli(runs["bf16"])
+    bf16_curve = check_convergence("bf16", bf16)
+    out["launches"]["quality_bf16"] = resident_launches(bf16["launches"])
+    by_step = {r["step"]: r["psnr_novel"] for r in curve}
+    gap = [[r["step"], round(by_step[r["step"]] - r["psnr_novel"], 3)]
+           for r in bf16_curve if r["step"] in by_step]
+    emit(info, phase="quality", part="convergence_bf16", steps=bf16["steps"],
+         final_psnr_novel=bf16["psnr_novel"], final_loss=bf16["final_loss"],
+         curve=[[r["step"], r["loss"], r["psnr_novel"]] for r in bf16_curve],
+         fp32_minus_bf16_db=gap, step_ms_median=bf16["step_ms_median"], wall_s=bf16["wall_s"],
+         cli_seconds=bf16_s, peak_gb=bf16["peak_gb"], launches=bf16["launches"])
+
+    # 5. the end-to-end chain through the train and evaluate CLIs
+    e2e, e2e_s = finish_cli(runs["e2e"])
+    if not (e2e["train_rc"] == 0 and e2e["eval_rc"] == 0 and e2e["val_psnr"] >= QUALITY_E2E_MIN_DB):
+        raise AssertionError(f"quality e2e: {e2e}")
+    emit(info, phase="quality", part="e2e", steps=e2e["steps"], val_psnr=e2e["val_psnr"],
+         train_rc=e2e["train_rc"], eval_rc=e2e["eval_rc"], train_s=e2e["train_s"],
+         eval_s=e2e["eval_s"], cli_seconds=e2e_s,
+         eval_metrics={k: e2e["eval_metrics"].get(k) for k in ("psnr_tgt", "loss_ssim_tgt",
+                                                               "eval_examples")},
+         jax_reference=JAX_QUALITY["e2e"])
+    emit(info, phase="quality", part="summary", foreground_seconds=time.perf_counter() - t_phase,
+         background_seconds={name: round(time.perf_counter() - r["t0"], 1)
+                             for name, r in runs.items()},
+         note="the runs' CLIs started before section 4 and ran beside sections 4, 10 and 12")
+    CONTENDED = False
+
+    # 6. the harness's step with its batches built inline against batch_feed
+    out["launches"]["quality_feed_vs_inline"] = resident_launches(feed_vs_inline(info))
+    return out
+
+
+def feed_vs_inline(info) -> dict:
+    """The convergence harness's median step ms (blocks of ARM_BLOCK steps,
+    fp32) with each batch built on this process's thread, as the JAX
+    harness builds it, against batches from batch_feed's spawned process;
+    arms in the order inline, feed, feed, inline, each from fresh weights.
+    Returns the arms' launches together."""
+    from mine_tpu_torch.tools import convergence_run as qc
+
+    ms, launches = {"inline": [], "feed": []}, {}
+    for i, arm in enumerate(("inline", "feed", "feed", "inline")):
+        args = qc.parse_args(["--steps", str(ARM_STEPS), "--eval-every", str(ARM_BLOCK),
+                              "--out", os.path.join(QUALITY_DIR, f"feed_{i}_{arm}")])
+        batches = None if arm == "feed" else (
+            qc.synthetic_batch(step, args.batch, args.height, args.width, args.seed)
+            for step in range(1, ARM_STEPS + 1))
+        verdict = qc.run(args, batches)
+        if not verdict["ok"] or verdict["launches"]["warp_bilinear_grad"] != 4 * ARM_STEPS:
+            raise AssertionError(f"feed_vs_inline {arm}: {verdict}")
+        ms[arm].append(verdict["step_ms_median"])
+        for k, n in verdict["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    emit(info, phase="quality", part="feed_vs_inline", steps_per_arm=ARM_STEPS,
+         block_steps=ARM_BLOCK, step_ms_median=ms,
+         inline_over_feed=statistics.mean(ms["inline"]) / statistics.mean(ms["feed"]),
+         launches=launches)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a "
@@ -3556,6 +3900,10 @@ def main() -> int:
     emit(info, phase="kernel_check", kernel="warp_bilinear_grad",
          shapes={k: list(v[0].shape) for k, v in k2_cases.items()}, results=k2_errs)
 
+    # 13 (begun). the quality harnesses' CLIs, in the background beside
+    # sections 4, 9, 10 and 12
+    quality_runs = start_quality_runs()
+
     # 4. the main path at full width, seeded random weights
     cfg = Config()  # the default configuration: ResNet-50, 384x512, S=32, bf16
     state = init_weights(build_model(cfg), torch.Generator().manual_seed(0)).state_dict()
@@ -3675,6 +4023,9 @@ def main() -> int:
     warm = warm_start_phase(info, os.path.join(PARALLEL_DIR, "zero1_data2_fp32"))
     c2f_train = coarse_to_fine_train(info, par, c2f_ref)
     c2f_serve = coarse_to_fine_serve(info, dev, state, images[0], g1, swing[:4])
+
+    # 13. the quality harnesses' results; nothing runs in the background after it
+    quality = quality_phase(info, dev, quality_runs)
 
     # 5. the training path at full width: Trainer.fit on synthetic batches
     from mine_tpu_torch.data.registry import build_dataset
@@ -3892,7 +4243,7 @@ def main() -> int:
     paths = {**streaming["launches"], **data_launches, **serve["launches"],
              **fleet["launches"], **obs["launches"], **par["launches"],
              **sharded["launches"], **preempt["launches"], **warm["launches"],
-             **c2f_train["launches"], **c2f_serve["launches"]}
+             **c2f_train["launches"], **c2f_serve["launches"], **quality["launches"]}
 
     def launches_of(name: str, size_class: str) -> dict:
         """The launches of `name` at one TPU size class on each main path: the
@@ -4012,6 +4363,28 @@ def main() -> int:
         bound_ms=k5c_row["bound_ms"], bound_by=k5c_row["bound_by"], library_ms=None,
     ))
     del k5c, k5c_out
+    # K5 at S=8, 128x128 on a trained model's MPI (the quality phase's eval)
+    k5q = quality["k5_in"]
+    k5q_out = kw.warp_composite(*k5q)
+    b_ms, b_by = bound_ms(nbytes(*k5q) + nbytes(k5q_out), k5q[0][..., 0].numel() * 96)
+    k5q_row = dict(
+        shape={"mpi_rgb": list(k5q[0].shape), "mpi_sigma": list(k5q[1].shape)},
+        ms=time_cuda_ms(lambda: kw.warp_composite(*k5q)),
+        plain_ms=time_cuda_ms(lambda: kw.warp_composite_matrix_plain(*k5q), reps=5, inner=1),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes(*k5q, k5q_out),
+        max_abs_err=quality["k5_err"],
+    )
+    emit(info, phase="timing", kernel="warp_composite", case="quality eval S=8", **k5q_row)
+    kernels.append(dict(
+        name="warp_composite (quality eval, S=8, 128x128)", route="cuda",
+        source="mine_tpu_torch/csrc/warp_composite.cu",
+        replaces="mine_tpu/ops/pallas/warp.py:689", shape=k5q_row["shape"],
+        launches=quality["k5_launches"],
+        launches_by_path={"quality_eval_streaming": quality["k5_launches"]},
+        max_abs_err=k5q_row["max_abs_err"], ms=k5q_row["ms"], plain_ms=k5q_row["plain_ms"],
+        bound_ms=k5q_row["bound_ms"], bound_by=k5q_row["bound_by"], library_ms=None,
+    ))
+    del k5q, k5q_out
     # K5 at every plane count the HTTP server ran it at (the pruned plane
     # buckets among them), on the inputs of a real /render at that count
     for s_planes, ops in sorted(serve["k5_inputs"].items()):
@@ -4176,4 +4549,7 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) > 2 and sys.argv[1] == "--train-rank":
         sys.exit(train_rank_main(sys.argv[2]))
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        stop_background()

@@ -137,3 +137,42 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
                              capture_output=True, text=True, timeout=120)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+QUALITY_TOOLS = ("convergence_run", "oracle_mpi_ceiling", "disocclusion_analysis",
+                 "e2e_quality_run")
+
+
+def test_quality_harnesses_and_the_verdict_stand_alone(tmp_path):
+    """mine_tpu_torch/tools/ (each JAX tools/ harness's counterpart, by file
+    name) and utils/verdict.py import no jax, flax, mine_tpu, and nothing of
+    the repository's root tools/ either; importing them and showing each
+    harness's help leaves all of those unloaded."""
+    files = [os.path.join(REPO, "mine_tpu_torch", "utils", "verdict.py")]
+    files += [os.path.join(REPO, "mine_tpu_torch", "tools", f"{name}.py")
+              for name in ("__init__",) + QUALITY_TOOLS]
+    for name in QUALITY_TOOLS:
+        assert os.path.exists(os.path.join(REPO, "tools", f"{name}.py"))
+    bad = {os.path.relpath(f, REPO): sorted(_imported_roots(f) & (FORBIDDEN | {"tools"}))
+           for f in files}
+    assert not {f: m for f, m in bad.items() if m}
+    script = textwrap.dedent(f"""
+        import contextlib, importlib, io, sys
+        importlib.import_module("mine_tpu_torch.utils.verdict")
+        for name in {QUALITY_TOOLS!r}:
+            mod = importlib.import_module("mine_tpu_torch.tools." + name)
+            with contextlib.redirect_stdout(io.StringIO()):
+                try:
+                    mod.main(["--help"])
+                except SystemExit as exc:
+                    assert exc.code == 0, (name, exc.code)
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "flax", "mine_tpu", "tools"))
+        print("LOADED", loaded)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", script], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "LOADED []" in out.stdout, out.stdout

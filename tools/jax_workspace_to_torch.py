@@ -23,6 +23,16 @@ The first warm-starts from it with the JAX semantics (the whole state, the
 step count from 0), the second serves it. JAX's PRNG key has no counterpart
 in the port: the export carries the disparity and dropout generators that a
 fresh port run of the config seeds (training.seed, training.seed + 1).
+
+With --msgpack it converts instead a model saved by the JAX convergence
+harness (tools/convergence_run.py --save-final: flax msgpack of {"params",
+"batch_stats"}) into the port harness's --save-final format (a torch.save'd
+MPINetwork state_dict), for the port's quality tools:
+
+    JAX_PLATFORMS=cpu python tools/jax_workspace_to_torch.py \
+        --msgpack final_params.msgpack --layers 18 --out final_state.pt
+    python -m mine_tpu_torch.tools.disocclusion_analysis --params final_state.pt
+
 Prints one JSON line. This script and the tests are the only code that
 imports both packages.
 """
@@ -136,13 +146,45 @@ def export(workspace: str, out: str) -> dict:
             "adam_moments": bool(mu), "schedule_count": scheduler.last_epoch}
 
 
+def export_msgpack(path: str, out: str, num_layers: int) -> dict:
+    """Convert a JAX convergence harness's --save-final msgpack into the
+    port harness's --save-final file (through a tmp file and a rename)."""
+    import torch
+    from flax import serialization
+
+    from mine_tpu_torch.config import Config
+    from mine_tpu_torch.models.convert import flatten_variables, jax_variables_to_torch
+    from mine_tpu_torch.training.step import build_model
+
+    with open(path, "rb") as fh:
+        tree = serialization.msgpack_restore(fh.read())
+    flat = flatten_variables({"params": tree["params"], "batch_stats": tree["batch_stats"]})
+    # strict in both directions: a save of another depth fails here
+    port = build_model(Config().replace(**{"model.num_layers": num_layers}))
+    port.load_state_dict(jax_variables_to_torch(flat, num_layers))
+    tmp = out + ".tmp"
+    torch.save(port.state_dict(), tmp)
+    os.replace(tmp, out)
+    return {"msgpack": path, "out": out, "layers": num_layers,
+            "parameters": sum(p.numel() for p in port.parameters())}
+
+
 def main(argv: list[str] | None = None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
-    parser.add_argument("--workspace", required=True, help="the JAX package's workspace")
-    parser.add_argument("--out", required=True, help="the port workspace to write")
+    source = parser.add_mutually_exclusive_group(required=True)
+    source.add_argument("--workspace", help="the JAX package's workspace")
+    source.add_argument("--msgpack", help="a JAX tools/convergence_run.py --save-final file")
+    parser.add_argument("--out", required=True,
+                        help="the port workspace to write (with --msgpack: the port's "
+                             "--save-final file)")
+    parser.add_argument("--layers", type=int, default=18,
+                        help="with --msgpack: the ResNet encoder depth of the saved model")
     args = parser.parse_args(argv)
-    result = export(args.workspace, args.out)
+    if args.msgpack:
+        result = export_msgpack(args.msgpack, args.out, args.layers)
+    else:
+        result = export(args.workspace, args.out)
     print(json.dumps(result), flush=True)
     return result
 
