@@ -134,13 +134,31 @@ From the root of a checkout, on a machine with a CUDA device and nvcc:
      novel-pose PSNR of its last 5 evals >= 16.0 dB and >= the median of its
      first 3 + 1.0 dB, its save scored again here under streaming (K5 once a
      pose) to 1e-2 dB of the run's score, K5 held on one of those poses; the bf16 run of the same
-     recipe (finite loss, its gap to fp32 at equal steps reported);
+     recipe (finite loss, the median of its last 5 evals no more than 1.0 dB
+     under fp32's, its gap to fp32 at equal steps reported);
      disocclusion_analysis on the fp32 save (the oracle's keys equal the
      CPU's); the end-to-end chain through the train and evaluate CLIs (900
      steps), both exit 0 and val PSNR >= 12.0 dB; every figure beside the
-     JAX package's (fp32, CPU, BASELINE.md); then, on a card nothing else
-     uses, the convergence harness's step time with its batches built
-     inline (as the JAX harness builds them) against batch_feed's;
+     JAX package's (fp32, CPU, BASELINE.md); then, once the drill of
+     section 14 is collected too, on a card nothing else uses, the
+     convergence harness's step time with its batches built inline (as the
+     JAX harness builds them) against batch_feed's;
+ 14. survives through the operator's CLIs (drill_phase): before section 4,
+     rows of this run's own timings (the build, K1 and K5) go into its perf
+     ledger (obs/ledger.py append_bench_row, $MINE_TPU_PERF_LEDGER pointed
+     under build/chip_smoke/, never the checkout's default file) and are read
+     back through `python -m mine_tpu_torch.tools.perf_ledger check` and
+     `show`; then `python -m mine_tpu_torch.tools.chaos_drill --half all`
+     runs in the background beside sections 4-13 and is collected before
+     the quiet card's measurements: its verdict ok in all six halves
+     (training on 4 gloo ranks sharing the card, serving, fleet, scale,
+     brownout, multihost: a rank SIGKILLed and its 3 survivors in the named
+     abort, the elastic 4 -> 3 restart within the JAX drill's gates, the
+     exact resume under the card's rule; every resumed rank's restore bit
+     for bit; --no-exact: the training half's reference runs left out),
+     each half's gates on a line of its own, K1 and K2 launched 4 times a
+     rank-step, K5 on the served entries held against its plain version,
+     the drill's ledger gate reading this run's rows;
  11. times every kernel (CUDA events), its plain version and, for the warp
      and its backward, torch's grid_sample, beside each kernel's memory
      bound (the backward also on the captured training operands; the
@@ -3460,6 +3478,9 @@ QUALITY_DB = 1e-2  # the agreement the phase holds PSNRs to, dB
 # the weights do, a median of a few moves less; the end-to-end chain's val
 # PSNR must reach QUALITY_E2E_MIN_DB
 QUALITY_FP32_MIN_DB, QUALITY_GAIN_DB, QUALITY_E2E_MIN_DB = 16.0, 1.0, 12.0
+# the bf16 run's median of its last QUALITY_TAIL evals may lie at most this
+# far under fp32's (one-sided: bf16 above fp32 is no fault)
+QUALITY_BF16_UNDER_DB = 1.0
 QUALITY_HEAD, QUALITY_TAIL = 3, 5
 # steps of each arm of the batch-feed comparison (inline, feed, feed, inline),
 # timed in blocks of ARM_BLOCK
@@ -3486,8 +3507,9 @@ def background_cli(name: str, argv: list[str]) -> dict:
     stdout and stderr to files under QUALITY_DIR."""
     out_path, err_path = (os.path.join(QUALITY_DIR, f"{name}.{s}") for s in ("out", "err"))
     with open(out_path, "w") as out, open(err_path, "w") as err:
+        # a session of its own: stop_background ends the CLI's children too
         proc = subprocess.Popen([sys.executable, "-m", *argv], cwd=ROOT, stdout=out,
-                                stderr=err, text=True)
+                                stderr=err, text=True, start_new_session=True)
     BACKGROUND.append(proc)
     return {"name": name, "proc": proc, "t0": time.perf_counter(), "out": out_path,
             "err": err_path}
@@ -3509,10 +3531,14 @@ def finish_cli(run: dict, timeout_s: float = 900.0) -> tuple[dict, float]:
 
 
 def stop_background() -> None:
+    import signal
+
     for proc in BACKGROUND:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)  # the CLI and what it started
+        except OSError:
+            pass
+        proc.wait()
 
 
 def start_quality_runs() -> dict:
@@ -3582,13 +3608,13 @@ def quality_phase(info, dev, runs: dict) -> dict:
         its saved model scored again here under the streaming compositor (K5
         once a pose), equal to the run's final score to 1e-2 dB, and K5 on one
         of those poses held against its plain version;
-      * the bf16 run: finite loss at every eval, its launches; its gap to the
-        fp32 curve at equal steps reported;
+      * the bf16 run: finite loss at every eval, its launches, the median of
+        its last 5 evals no more than 1.0 dB under fp32's (bf16 above is no
+        fault); its gap to the fp32 curve at equal steps reported;
       * disocclusion_analysis on the fp32 save: the oracle's keys equal to the
         CPU's (1e-2 dB), the disoccluded pixel share exactly;
-      * the end-to-end chain: both CLIs exit 0, held-out val PSNR >= 12.0 dB;
-    then, with the CLIs done, feed_vs_inline. Returns the launches of each
-    path and K5's inputs for the timing."""
+      * the end-to-end chain: both CLIs exit 0, held-out val PSNR >= 12.0 dB.
+    Returns the launches of each path and K5's inputs for the timing."""
     from mine_tpu_torch.data.synthetic import _intrinsics, _render_view
     from mine_tpu_torch.inference.trajectory import poses_from_offsets
     from mine_tpu_torch.inference.video import predict_blended_mpi
@@ -3600,7 +3626,6 @@ def quality_phase(info, dev, runs: dict) -> dict:
     from mine_tpu_torch.tools.disocclusion_analysis import analyse
     from mine_tpu_torch.tools.oracle_mpi_ceiling import SRC_POSE_MIN_DB, oracle_rows
 
-    global CONTENDED
     t_phase = time.perf_counter()
     out = {"launches": {}}
     h = w = 128
@@ -3711,8 +3736,15 @@ def quality_phase(info, dev, runs: dict) -> dict:
     by_step = {r["step"]: r["psnr_novel"] for r in curve}
     gap = [[r["step"], round(by_step[r["step"]] - r["psnr_novel"], 3)]
            for r in bf16_curve if r["step"] in by_step]
+    bf16_tail = statistics.median(r["psnr_novel"] for r in bf16_curve[-QUALITY_TAIL:])
+    if bf16_tail < tail - QUALITY_BF16_UNDER_DB:
+        raise AssertionError(f"quality bf16: median of the last {QUALITY_TAIL} evals {bf16_tail} "
+                             f"dB, {tail - bf16_tail:.3f} dB under fp32's {tail} dB (held at "
+                             f"{QUALITY_BF16_UNDER_DB})")
     emit(info, phase="quality", part="convergence_bf16", steps=bf16["steps"],
          final_psnr_novel=bf16["psnr_novel"], final_loss=bf16["final_loss"],
+         tail_median_db=bf16_tail, fp32_tail_median_db=tail,
+         fp32_minus_bf16_tail_median_db=tail - bf16_tail, held_under_db=QUALITY_BF16_UNDER_DB,
          curve=[[r["step"], r["loss"], r["psnr_novel"]] for r in bf16_curve],
          fp32_minus_bf16_db=gap, step_ms_median=bf16["step_ms_median"], wall_s=bf16["wall_s"],
          cli_seconds=bf16_s, peak_gb=bf16["peak_gb"], launches=bf16["launches"])
@@ -3731,10 +3763,6 @@ def quality_phase(info, dev, runs: dict) -> dict:
          background_seconds={name: round(time.perf_counter() - r["t0"], 1)
                              for name, r in runs.items()},
          note="the runs' CLIs started before section 4 and ran beside sections 4, 10 and 12")
-    CONTENDED = False
-
-    # 6. the harness's step with its batches built inline against batch_feed
-    out["launches"]["quality_feed_vs_inline"] = resident_launches(feed_vs_inline(info))
     return out
 
 
@@ -3766,6 +3794,118 @@ def feed_vs_inline(info) -> dict:
     return launches
 
 
+# 14. the chaos drill (mine_tpu_torch/tools/chaos_drill.py), run as the CLI a
+# user runs, and the perf ledger it gates on (obs/ledger.py)
+DRILL_DIR = os.path.join(ROOT, "build", "chip_smoke", "drill")
+# every ledger row of this run, the one the drill's gate reads too: never the
+# checkout's default perf_ledger.jsonl
+DRILL_LEDGER = os.path.join(DRILL_DIR, "perf_ledger.jsonl")
+# the drill's --steps (the JAX drill smoke's; its default is 6) and
+# --no-exact: the training half's two uninterrupted reference runs are left
+# out (a quarter of the drill's rank processes, which share the card with
+# sections 4-13); the multihost half's exact resume still holds the card's
+# rule, and the training half still holds every rank's restore bit for bit
+DRILL_STEPS = 5
+# rank-steps of the multihost half, each K1 and K2 once a scale (4 a step):
+# the kill run 4 x 3, the elastic step 3 x 1 and the same step at 4 ranks
+# 4 x 1, the elastic run's last 3 steps at 3 ranks, its 3-rank reference 3 x 6,
+# the interrupted 2 x 3 and resumed 2 x 4, two 2-rank references 2 x 6
+DRILL_MULTIHOST_RANK_STEPS = 12 + 3 + 4 + 9 + 18 + 6 + 8 + 12 + 12
+DRILL_HALVES = ("training", "serving", "fleet", "scale", "brownout", "multihost")
+
+
+def ledger_rows(dev, build_s: float, timed: dict) -> int:
+    """Rows of this run's own timings appended to DRILL_LEDGER through
+    append_bench_row: the build's seconds, each kernel's ms at its section 3
+    shape. Returns the row count."""
+    from mine_tpu_torch.obs import ledger
+
+    rows = [({"metric": "chip_smoke_build_s", "value": build_s, "unit": "s",
+              "higher_is_better": False}, {"sources": "mine_tpu_torch/csrc"})]
+    for name, (ms, shape) in timed.items():
+        rows.append(({"metric": f"chip_smoke_{name}_ms", "value": ms, "unit": "ms",
+                      "higher_is_better": False}, {"shape": shape}))
+    for fields, workload in rows:
+        if ledger.append_bench_row(fields, workload, path=DRILL_LEDGER, device=dev) is None:
+            raise AssertionError(f"perf ledger: the row {fields} was not written")
+    return len(rows)
+
+
+def ledger_readback(info, n_rows: int) -> None:
+    """The rows read back through the perf-ledger CLI (its main, in this
+    process): `check` (every stream new, so skipped: this sets no limit) and
+    `show`."""
+    import contextlib
+    import io
+
+    from mine_tpu_torch.tools import perf_ledger
+
+    outs = {}
+    for cmd in ("check", "show"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = perf_ledger.main([cmd, "--ledger", DRILL_LEDGER])
+        outs[cmd] = (rc, buf.getvalue().strip().splitlines())
+    check, shown = json.loads(outs["check"][1][-1]), outs["show"][1]
+    if not (outs["check"][0] == 0 == outs["show"][0] and check["ok"] and check["rows"] == n_rows
+            and len(check["skipped"]) == n_rows and check["malformed_lines"] == 0
+            and len(shown) == n_rows):
+        raise AssertionError(f"perf ledger: check {outs['check']}, show {outs['show']}")
+    emit(info, phase="perf_ledger", ledger=DRILL_LEDGER, rows=[json.loads(ln) for ln in shown],
+         check={k: check[k] for k in ("ok", "rows", "regressions", "malformed_lines")},
+         streams_skipped=len(check["skipped"]))
+
+
+def start_drill() -> dict:
+    """`python -m mine_tpu_torch.tools.chaos_drill --half all` in the
+    background, beside section 13's CLIs and sections 4-12."""
+    return background_cli("drill", ["mine_tpu_torch.tools.chaos_drill", "--half", "all",
+                                    "--steps", str(DRILL_STEPS), "--no-exact",
+                                    "--workdir", os.path.join(DRILL_DIR, "work")])
+
+
+def drill_phase(info, run: dict, n_rows: int) -> dict:
+    """The drill's verdict (its CLI started by start_drill): ok in every
+    half, each half's gates on a line of its own; the training ranks' K1 and
+    K2 launches 4 a rank-step, K5 on the served entries held against its
+    plain version by the drill (rtol = atol = 1e-5); its ledger gate read the
+    rows of ledger_rows. Returns the launches of each half."""
+    verdict, seconds = finish_cli(run, timeout_s=1100.0)
+    missing = [h for h in DRILL_HALVES if not verdict.get(h, {}).get("ok")]
+    if missing:
+        raise AssertionError(f"chaos drill: halves {missing} not ok: {verdict}")
+    for half in DRILL_HALVES:
+        emit(info, phase="chaos_drill", half=half, **verdict[half])
+    train, mh_half, serve = verdict["training"], verdict["multihost"], verdict["serving"]
+    # the training half: 4 ranks, the preempted run's 4 steps and the resumed
+    # run's last DRILL_STEPS - 4
+    rank_steps = {"training": 4 * DRILL_STEPS, "multihost": DRILL_MULTIHOST_RANK_STEPS}
+    for half, n in rank_steps.items():
+        want = {"warp_bilinear": 4 * n, "warp_bilinear_grad": 4 * n, "warp_composite": 0}
+        if verdict[half]["launches"] != want:
+            raise AssertionError(f"chaos drill {half}: launches {verdict[half]['launches']}, "
+                                 f"want {want} (4 a rank-step)")
+    # the drill held K5 with check_close's rule (allclose at rtol = atol = 1e-5)
+    if not serve["launches"]["warp_composite"] or serve["k5_tolerance"] != TOL:
+        raise AssertionError(f"chaos drill serving: {serve}")
+    if not (train["restore_ok"] and mh_half["restore_ok"]):
+        raise AssertionError(f"chaos drill: a rank's restore is not bit-equal: {verdict}")
+    gate = verdict["perf_ledger"]
+    if not (gate["ok"] and gate["ledger"] == DRILL_LEDGER and gate["rows"] == n_rows):
+        raise AssertionError(f"chaos drill: its ledger gate read {gate}, want {n_rows} rows "
+                             f"of {DRILL_LEDGER}")
+    emit(info, phase="chaos_drill", part="summary", ok=verdict["ok"], cli_seconds=seconds,
+         drill_seconds=verdict["seconds"],
+         half_seconds={h: verdict[h]["seconds"] for h in DRILL_HALVES},
+         exactness_rule=mh_half["exactness_rule"],
+         resumed_max_gap=mh_half["resumed_max_gap"], two_run_max_gap=mh_half["two_run_max_gap"],
+         tf32=train["tf32"], perf_ledger=gate,
+         launches={h: verdict[h]["launches"] for h in ("training", "serving", "multihost")},
+         note="the drill's CLI started before section 4 and ran beside sections 4-13")
+    return {"launches": {f"drill_{h}": resident_launches(verdict[h]["launches"])
+                         for h in ("training", "serving", "multihost")}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a "
@@ -3783,6 +3923,13 @@ def main() -> int:
     from mine_tpu_torch.serving.engine import RenderEngine
     from mine_tpu_torch.training.step import build_model, render_novel_view
 
+    global CONTENDED
+    # every perf-ledger row of this run and its CLIs goes to its own file
+    import shutil
+
+    shutil.rmtree(DRILL_DIR, ignore_errors=True)
+    os.makedirs(DRILL_DIR)
+    os.environ["MINE_TPU_PERF_LEDGER"] = DRILL_LEDGER
     # 1. the card, and no TF32 anywhere
     info = card()
     print(info["nvidia_smi"], flush=True)
@@ -3800,10 +3947,10 @@ def main() -> int:
     # 2. build from the checkout's sources
     t0 = time.perf_counter()
     logs = build.build_all(force=True, ptxas_info=True)
+    build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
-    emit(info, phase="build", seconds=time.perf_counter() - t0, sources=sorted(logs),
-         ptxas=ptxas)
+    emit(info, phase="build", seconds=build_s, sources=sorted(logs), ptxas=ptxas)
 
     # 3. each kernel against its plain version at the main path's shapes
     h, w, s = 384, 512, 32
@@ -3900,9 +4047,18 @@ def main() -> int:
     emit(info, phase="kernel_check", kernel="warp_bilinear_grad",
          shapes={k: list(v[0].shape) for k, v in k2_cases.items()}, results=k2_errs)
 
-    # 13 (begun). the quality harnesses' CLIs, in the background beside
-    # sections 4, 9, 10 and 12
+    # 14 (begun). rows of this run's timings in its perf ledger, then the
+    # chaos drill's CLI in the background, beside sections 4-13; 13 (begun).
+    # the quality harnesses' CLIs, in the background beside sections 4, 10
+    # and 12
+    timed = {"warp_bilinear": (time_cuda_ms(lambda: kw.warp_bilinear(k1_src, k1_cx, k1_cy),
+                                            reps=5), list(k1_src.shape)),
+             "warp_composite": (time_cuda_ms(lambda: kw.warp_composite(*k5_in), reps=5),
+                                list(k5_in[0].shape))}
+    n_ledger_rows = ledger_rows(dev, build_s, timed)
     quality_runs = start_quality_runs()
+    drill_run = start_drill()
+    ledger_readback(info, n_ledger_rows)
 
     # 4. the main path at full width, seeded random weights
     cfg = Config()  # the default configuration: ResNet-50, 384x512, S=32, bf16
@@ -4024,8 +4180,14 @@ def main() -> int:
     c2f_train = coarse_to_fine_train(info, par, c2f_ref)
     c2f_serve = coarse_to_fine_serve(info, dev, state, images[0], g1, swing[:4])
 
-    # 13. the quality harnesses' results; nothing runs in the background after it
+    # 13. the quality harnesses' results, then 14. the drill's; nothing runs
+    # in the background after them
     quality = quality_phase(info, dev, quality_runs)
+    drill = drill_phase(info, drill_run, n_ledger_rows)
+    CONTENDED = False
+    # 13, last. the harness's step with its batches built inline against
+    # batch_feed, on a card nothing else uses
+    quality["launches"]["quality_feed_vs_inline"] = resident_launches(feed_vs_inline(info))
 
     # 5. the training path at full width: Trainer.fit on synthetic batches
     from mine_tpu_torch.data.registry import build_dataset
@@ -4243,7 +4405,8 @@ def main() -> int:
     paths = {**streaming["launches"], **data_launches, **serve["launches"],
              **fleet["launches"], **obs["launches"], **par["launches"],
              **sharded["launches"], **preempt["launches"], **warm["launches"],
-             **c2f_train["launches"], **c2f_serve["launches"], **quality["launches"]}
+             **c2f_train["launches"], **c2f_serve["launches"], **quality["launches"],
+             **drill["launches"]}
 
     def launches_of(name: str, size_class: str) -> dict:
         """The launches of `name` at one TPU size class on each main path: the

@@ -247,6 +247,12 @@ class SLOTracker:
                     out[obj.name]["threshold_s"] = obj.threshold_s
         return out
 
+    def verdict(self, now: float | None = None) -> dict[str, Any]:
+        """The pass/fail block the chaos drill embeds: one evaluate() and
+        the conjunction."""
+        per = self.evaluate(now)
+        return {"objectives": per, "ok": all(v["ok"] for v in per.values())}
+
 
 def tracker_from_config(registry: MetricsRegistry, cfg: Any,
                         family_prefix: str = "mine_serve") -> SLOTracker:

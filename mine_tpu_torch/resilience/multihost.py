@@ -494,6 +494,17 @@ def straggler_table(directory: str) -> dict:
     return {"rows": rows, "suspect": suspect, "skew_fraction": skew_fraction}
 
 
+# what a gloo collective raises when the connection to a peer goes
+_PEER_LOSS_MESSAGES = ("Connection closed by peer", "Connection reset by peer")
+
+
+def is_peer_loss(error: BaseException) -> bool:
+    """Whether a collective raised `error` because a peer's connection went
+    (the peer process died, or its host): gloo raises a RuntimeError naming
+    the closed or reset connection."""
+    return isinstance(error, RuntimeError) and any(m in str(error) for m in _PEER_LOSS_MESSAGES)
+
+
 def abort_markers(directory: str) -> dict[int, dict]:
     """{process_index: marker} for every abort marker under `directory` —
     the operator's read side of the watchdog's verdict."""
@@ -611,6 +622,34 @@ class MultihostSurvival:
                     "error": f"{type(error).__name__}: {error}"[:500]},
             flight=self.flight, logger=self.logger, exit_fn=self._exit, linger_s=linger_s,
         )
+
+    def lost_peer(self, error: BaseException) -> bool:
+        """Whether `error` is a collective's peer gone without a word (a
+        gloo connection closed or reset: the peer was killed or its host
+        lost) that this process's watchdog can judge: no peer has taken the
+        named abort, and the watchdog runs."""
+        return (self.watchdog is not None and is_peer_loss(error)
+                and not self.peer_aborted())
+
+    def await_verdict(self, error: BaseException) -> None:
+        """Wait for the named abort after `lost_peer(error)`. The JAX
+        package's collectives hang on such a peer until the watchdog judges
+        its heartbeat stale; torch.distributed's raise at once, so this
+        thread waits in their place while the watchdog thread judges the
+        heartbeats (`host_stall`, naming the silent peer), or joins a peer's
+        marker (`peer_abort`). Bounded by the failsafe, armed here at two
+        windows: the peer's last beat is at most one window plus the
+        watchdog's startup grace from its verdict."""
+        self.arm_failsafe(seconds=2.0 * self.window_s + self.watchdog.grace_s)
+        if self.logger is not None:
+            self.logger.error("a collective lost its peer (%s: %s); waiting for the "
+                              "cross-host watchdog's verdict", type(error).__name__,
+                              str(error)[:300])
+        while True:
+            if self.peer_aborted():
+                self.abort_after_peer(error)
+                return
+            time.sleep(self.watchdog.poll_s)
 
     def stragglers(self) -> dict:
         """The straggler table over this run's heartbeat dir — what the

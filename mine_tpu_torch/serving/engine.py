@@ -181,6 +181,10 @@ class RenderEngine:
         peak_flops_override: float = 0.0,
     ):
         self.device = resolve_device(device)
+        # the FLOP counter of a bucket's first predict imports torch._dynamo
+        # at its first use (~3 s of host time): pay it at start-up, not in the
+        # first request of a replica started without warm-up
+        import torch._dynamo  # noqa: F401
         # what mine_serve_mfu divides by: the override, else the card's row
         self.peak_flops = resolve_peak_flops(self.device, peak_flops_override)
         self.base_cfg = cfg

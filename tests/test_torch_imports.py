@@ -176,3 +176,46 @@ def test_quality_harnesses_and_the_verdict_stand_alone(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "LOADED []" in out.stdout, out.stdout
+
+
+OPERATOR_TOOLS = ("chaos_drill", "multihost_harness", "perf_ledger")
+
+
+def test_operator_tools_and_the_ledger_stand_alone(tmp_path):
+    """The drill, the multihost harness and the perf-ledger CLI
+    (mine_tpu_torch/tools/, each tools/ CLI's counterpart by file name) and
+    obs/ledger.py import no jax, flax, mine_tpu or root tools/; importing them,
+    showing each CLI's help and checking an empty ledger leave all of those
+    unloaded, and write no ledger file."""
+    files = [os.path.join(REPO, "mine_tpu_torch", "obs", "ledger.py")]
+    files += [os.path.join(REPO, "mine_tpu_torch", "tools", f"{name}.py")
+              for name in OPERATOR_TOOLS]
+    for name in OPERATOR_TOOLS:
+        assert os.path.exists(os.path.join(REPO, "tools", f"{name}.py"))
+    bad = {os.path.relpath(f, REPO): sorted(_imported_roots(f) & (FORBIDDEN | {"tools"}))
+           for f in files}
+    assert not {f: m for f, m in bad.items() if m}
+    script = textwrap.dedent(f"""
+        import contextlib, importlib, io, sys
+        importlib.import_module("mine_tpu_torch.obs.ledger")
+        for name in {OPERATOR_TOOLS!r}:
+            mod = importlib.import_module("mine_tpu_torch.tools." + name)
+            with contextlib.redirect_stdout(io.StringIO()):
+                try:
+                    mod.main(["--help"])
+                except SystemExit as exc:
+                    assert exc.code == 0, (name, exc.code)
+        from mine_tpu_torch.tools import perf_ledger
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert perf_ledger.main(["check"]) == 0
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "flax", "mine_tpu", "tools"))
+        print("LOADED", loaded)
+    """)
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "MINE_TPU_PERF_LEDGER")}
+    env.update(PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", script], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "LOADED []" in out.stdout, out.stdout
+    assert not os.path.exists(tmp_path / "perf_ledger.jsonl")
